@@ -1,0 +1,258 @@
+"""Bird's-eye-view rasterization of padded LiDAR scans, in PyTorch.
+
+The port of `sfa3d_tpu/ops/bev.py`. `points_to_bev` fuses the range filter
+and the raster, batched on the device:
+
+    cell        = floor(x / disc), floor(y / disc) + W/2   (guard row/col dropped)
+    key         = (13-bit height << 12) | 12-bit intensity  (-1 for a dropped point)
+    max key     = scatter_reduce(amax) per cell            -> channels 0 and 1
+    point count = bev_cell_counts (hand-written CUDA)      -> channel 2
+
+Channels (last axis, the JAX package's order):
+    0: intensity of the highest point in the cell (12-bit quantized)
+    1: height of the highest point / z range      (13-bit quantized)
+    2: density min(1, log(n+1)/log 64), with n saturated at 63
+
+A tie on quantized height picks the max intensity, because the packed key
+orders by height first and intensity second: the same rule as the JAX
+raster's sort + segment_max.
+
+Every division by a constant is written as a multiplication by the float32
+reciprocal, because XLA compiles `x / c` that way: a true division moves
+`floor()` cell indices of points near a cell edge and breaks bit parity
+with the JAX raster (tests/test_torch_bev.py covers cell-edge points).
+Each elementwise step is its own PyTorch op, so nothing is contracted to a
+fused multiply-add. Subnormal coordinates count as zero, as under XLA.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from sfa3d_tpu_torch.config import kitti as cnf
+from sfa3d_tpu_torch.ops.bev_counts import bev_cell_counts
+
+_BOUND = (
+    cnf.boundary["minX"], cnf.boundary["maxX"],
+    cnf.boundary["minY"], cnf.boundary["maxY"],
+    cnf.boundary["minZ"], cnf.boundary["maxZ"],
+)
+
+
+def _f32_reciprocal(c: float) -> float:
+    """1/c rounded to float32 (a Python float that float32 holds exactly)."""
+    return float(np.float32(1.0 / c))
+
+
+def warn_point_overflow(n_in_range: int, max_points: int, stacklevel: int = 3) -> None:
+    """Truncation must never be silent. stacklevel=3 points at the caller of
+    filter_and_pad_points. The message is the JAX package's."""
+    if n_in_range > max_points:
+        warnings.warn(
+            f"scan has {n_in_range} in-range points; keeping the first "
+            f"{max_points} (raise MAX_POINTS_FILTERED to keep all)",
+            RuntimeWarning,
+            stacklevel=stacklevel,
+        )
+
+
+def filter_and_pad_points(
+    points: np.ndarray,
+    max_points: int = cnf.MAX_POINTS_FILTERED,
+    boundary: Dict[str, float] = cnf.boundary,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host side: range-filter a ragged (N, 4) scan and pad/truncate it to a
+    fixed (max_points, 4) float32 array plus a (max_points,) bool mask.
+    z is NOT shifted: `points_to_bev` applies the shift itself. Warns when
+    in-range points are dropped."""
+    points = np.asarray(points, dtype=np.float32)
+    mask = (
+        (points[:, 0] >= boundary["minX"])
+        & (points[:, 0] <= boundary["maxX"])
+        & (points[:, 1] >= boundary["minY"])
+        & (points[:, 1] <= boundary["maxY"])
+        & (points[:, 2] >= boundary["minZ"])
+        & (points[:, 2] <= boundary["maxZ"])
+    )
+    in_range = points[mask]
+    warn_point_overflow(len(in_range), max_points)
+    kept = in_range[:max_points]
+    out = np.zeros((max_points, 4), dtype=np.float32)
+    out[: len(kept)] = kept
+    valid = np.zeros((max_points,), dtype=bool)
+    valid[: len(kept)] = True
+    return out, valid
+
+
+def _pad_raw(points: np.ndarray, max_points: int = cnf.MAX_POINTS):
+    """Pad/truncate a raw scan without filtering (the raster filters).
+    Truncation warns: host-filter full scans first with
+    filter_and_pad_points."""
+    if len(points) > max_points:
+        warnings.warn(
+            f"raw scan has {len(points)} points; truncating to {max_points} "
+            "— host-filter first (filter_and_pad_points) to keep all "
+            "in-range points",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    n = min(len(points), max_points)
+    out = np.zeros((max_points, 4), dtype=np.float32)
+    out[:n] = points[:n]
+    valid = np.zeros((max_points,), dtype=bool)
+    valid[:n] = True
+    return out, valid
+
+
+def _check_bound(bound, bev_height: int, bev_width: int) -> float:
+    min_x, max_x, min_y, max_y, _, _ = bound
+    discretization = (max_x - min_x) / bev_height
+    # The column formula floor(y/disc) + W//2 assumes a Y range symmetric
+    # about 0 and square cells; anything else would shift and crop the
+    # raster without a word.
+    if abs(min_y + max_y) > 1e-9:
+        raise ValueError(
+            f"points_to_bev requires a symmetric Y boundary (minY == -maxY); "
+            f"got minY={min_y}, maxY={max_y}"
+        )
+    if abs((max_y - min_y) / bev_width - discretization) > 1e-12:
+        raise ValueError(
+            "points_to_bev requires square cells: (maxY-minY)/bev_width must "
+            f"equal (maxX-minX)/bev_height; got {(max_y - min_y) / bev_width} "
+            f"vs {discretization}"
+        )
+    return discretization
+
+
+def cell_indices_and_keys(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    bev_height: int = cnf.BEV_HEIGHT,
+    bev_width: int = cnf.BEV_WIDTH,
+    bound: Tuple[float, float, float, float, float, float] = _BOUND,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The elementwise half of the raster: (B, N, 4) raw padded scans +
+    (B, N) bool mask -> (row, col, key), each (B, N) int32. A point dropped
+    by the mask, the range filter or the guard row/column gets row = col =
+    key = -1."""
+    discretization = _check_bound(bound, bev_height, bev_width)
+    min_x, max_x, min_y, max_y, min_z, max_z = bound
+    points = torch.as_tensor(points).to(torch.float32)
+    valid = torch.as_tensor(valid, device=points.device).to(torch.bool)
+    if points.dim() != 3 or points.shape[-1] != 4 or valid.shape != points.shape[:2]:
+        raise ValueError(
+            f"expected points (B, N, 4) and valid (B, N); got "
+            f"{tuple(points.shape)} and {tuple(valid.shape)}"
+        )
+    # XLA treats float32 subnormals as zero, on the TPU and on the CPU; so
+    # does the port, or a point one ulp beside the x = 0 or y = 0 cell edge
+    # would land in another cell than in the JAX raster
+    points = torch.where(points.abs() < torch.finfo(torch.float32).tiny, 0.0, points)
+    x, y, z, r = points.unbind(-1)
+    # NaN coordinates fail the range tests; a NaN intensity on a valid point
+    # would poison the packed key
+    r = torch.nan_to_num(r)
+
+    in_range = (
+        (x >= min_x) & (x <= max_x)
+        & (y >= min_y) & (y <= max_y)
+        & (z >= min_z) & (z <= max_z)
+    )
+    inv_disc = _f32_reciprocal(discretization)
+    rowf = torch.floor((x - min_x) * inv_disc)
+    colf = torch.floor(y * inv_disc) + float(bev_width // 2)
+    # the reference's (H+1, W+1) guard row and column are dropped
+    ok = (
+        valid & in_range
+        & (rowf >= 0) & (rowf < bev_height) & (colf >= 0) & (colf < bev_width)
+    )
+    row = torch.where(ok, rowf, -1.0).to(torch.int32)
+    col = torch.where(ok, colf, -1.0).to(torch.int32)
+
+    # 25-bit key: 13-bit height high, 12-bit intensity low, so the max key is
+    # the highest point with a max-intensity tie-break. Clamping before the
+    # int cast equals the JAX cast-then-clip for every finite value.
+    zs = z - min_z
+    z_range = abs(max_z - min_z)
+    qz = torch.clamp(zs * _f32_reciprocal(z_range) * 8191.0 + 0.5, 0.0, 8191.0)
+    qr = torch.clamp(r * 4095.0 + 0.5, 0.0, 4095.0)
+    qz = torch.where(ok, qz, 0.0).to(torch.int32)
+    qr = torch.where(ok, qr, 0.0).to(torch.int32)
+    key = torch.where(ok, (qz << 12) | qr, -1)
+    return row, col, key
+
+
+def points_to_bev_nchw(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    bev_height: int = cnf.BEV_HEIGHT,
+    bev_width: int = cnf.BEV_WIDTH,
+    bound: Tuple[float, float, float, float, float, float] = _BOUND,
+) -> torch.Tensor:
+    """(B, N, 4) raw padded scans + (B, N) bool mask -> (B, 3, H, W) float32
+    raster, channels first, on the scans' device (the model's layout)."""
+    row, col, key = cell_indices_and_keys(
+        points, valid, bev_height=bev_height, bev_width=bev_width, bound=bound
+    )
+    b = row.shape[0]
+    num_cells = bev_height * bev_width
+    ok = row >= 0
+    cid = torch.where(ok, row.long() * bev_width + col.long(), num_cells)  # dump cell
+    max_key = torch.full((b, num_cells + 1), -1, dtype=torch.int32, device=row.device)
+    max_key.scatter_reduce_(1, cid, key, reduce="amax", include_self=True)
+    max_key = max_key[:, :num_cells]
+
+    count = torch.clamp_max(bev_cell_counts(row, col, bev_height, bev_width), 63.0)
+    count = count.view(b, num_cells)
+
+    occupied = max_key >= 0
+    seg = torch.clamp_min(max_key, 0)
+    height_map = torch.where(
+        occupied, (seg >> 12).to(torch.float32) * _f32_reciprocal(8191.0), 0.0
+    )
+    intensity_map = torch.where(
+        occupied, (seg & 4095).to(torch.float32) * _f32_reciprocal(4095.0), 0.0
+    )
+    density_map = torch.clamp_max(
+        torch.log(count + 1.0) * _f32_reciprocal(float(np.log(64.0))), 1.0
+    )
+    bev = torch.stack([intensity_map, height_map, density_map], dim=1)
+    return bev.view(b, 3, bev_height, bev_width)
+
+
+def points_to_bev(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    bev_height: int = cnf.BEV_HEIGHT,
+    bev_width: int = cnf.BEV_WIDTH,
+    bound: Tuple[float, float, float, float, float, float] = _BOUND,
+) -> torch.Tensor:
+    """Raw padded scan(s) -> BEV raster in the JAX package's NHWC layout.
+
+    `points`: (N, 4) or (B, N, 4) float32 (x, y, z, intensity), velodyne
+    frame, unshifted z. `valid`: (N,) or (B, N) bool padding mask. Returns
+    (H, W, 3) or (B, H, W, 3) float32 on the points' device (a channels-last
+    view of the channels-first raster)."""
+    points = torch.as_tensor(points)
+    single = points.dim() == 2
+    if single:
+        points = points[None]
+        valid = torch.as_tensor(valid)[None]
+    bev = points_to_bev_nchw(
+        points, valid, bev_height=bev_height, bev_width=bev_width, bound=bound
+    ).permute(0, 2, 3, 1)
+    return bev[0] if single else bev
+
+
+def points_to_bev_batch(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Batched form at the default geometry: (B, N, 4), (B, N) -> (B, H, W, 3)."""
+    if torch.as_tensor(points).dim() != 3:
+        raise ValueError("points_to_bev_batch expects (B, N, 4) points")
+    return points_to_bev(points, valid)
