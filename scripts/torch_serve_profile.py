@@ -13,7 +13,7 @@ KITTI-like numpy scans and prints one JSON line each for:
            mode; its detections are not held to the 1e-3 parity here)
   profile  torch.profiler over --reps batch-8 calls: device time by kernel
            (top 15), by kernel family, the device's busy share of the wall
-           time, and the count kernel's own device time
+           time, and the BEV tile kernel's own device time
 
 The last line is the card's name and power limit from nvidia-smi. Needs
 CUDA; exits non-zero without it. --trace writes a Chrome trace.
@@ -40,7 +40,7 @@ from sfa3d_tpu_torch.detector import Detector  # noqa: E402
 from sfa3d_tpu_torch.ops.bev import filter_and_pad_points  # noqa: E402
 
 FAMILIES = (
-    ("count_kernel", r"count_points_kernel|counts_to_float_kernel"),
+    ("bev_tile_kernel", r"bev_tile_kernel"),
     ("conv_gemm", r"conv|cudnn|gemm|xmma|implicit|winograd|fft|sm90|sm80|cutlass"),
     ("memcpy_memset", r"[Mm]emcpy|[Mm]emset"),
     ("reduce_sort_topk", r"reduce|sort|topk|scatter|gather|index|radix|bitonic"),
@@ -126,13 +126,13 @@ def main() -> int:
         fam = next((n for n, pat in FAMILIES if re.search(pat, key)), "other")
         families[fam] += us
     top = sorted(kernels, key=lambda k: -k[2])[:15]
-    count_us = sum(us for key, _, us in kernels if re.search(FAMILIES[0][1], key))
+    bev_us = sum(us for key, _, us in kernels if re.search(FAMILIES[0][1], key))
     print(json.dumps({
         "profile": {"bucket": 8, "batches": args.reps,
                     "wall_ms_per_batch": wall_us / args.reps / 1e3,
                     "device_ms_per_batch": device_us / args.reps / 1e3,
                     "device_busy_share": device_us / wall_us if wall_us else None,
-                    "count_kernel_device_us_per_batch": count_us / args.reps,
+                    "bev_kernel_device_us_per_batch": bev_us / args.reps,
                     "families_ms_per_batch": {k: v / args.reps / 1e3 for k, v in families.items()},
                     "top_kernels": [{"name": k[:120], "calls_per_batch": c / args.reps,
                                      "ms_per_batch": us / args.reps / 1e3} for k, c, us in top]},

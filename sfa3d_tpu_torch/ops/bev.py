@@ -5,8 +5,12 @@ and the raster, batched on the device:
 
     cell        = floor(x / disc), floor(y / disc) + W/2   (guard row/col dropped)
     key         = (13-bit height << 12) | 12-bit intensity  (-1 for a dropped point)
-    max key     = scatter_reduce(amax) per cell            -> channels 0 and 1
-    point count = bev_cell_counts (hand-written CUDA)      -> channel 2
+    max key     = per-cell max of the keys                 -> channels 0 and 1
+    point count = per-cell count of the points             -> channel 2
+
+The first two lines are elementwise PyTorch (`cell_indices_and_keys`); the
+per-cell reduction and the channel epilogue are one launch of a
+hand-written CUDA kernel (`ops/bev_counts.py::bev_raster_reduce`).
 
 Channels (last axis, the JAX package's order):
     0: intensity of the highest point in the cell (12-bit quantized)
@@ -34,18 +38,13 @@ import numpy as np
 import torch
 
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.ops.bev_counts import bev_cell_counts
+from sfa3d_tpu_torch.ops.bev_counts import _f32_reciprocal, bev_raster_reduce
 
 _BOUND = (
     cnf.boundary["minX"], cnf.boundary["maxX"],
     cnf.boundary["minY"], cnf.boundary["maxY"],
     cnf.boundary["minZ"], cnf.boundary["maxZ"],
 )
-
-
-def _f32_reciprocal(c: float) -> float:
-    """1/c rounded to float32 (a Python float that float32 holds exactly)."""
-    return float(np.float32(1.0 / c))
 
 
 def warn_point_overflow(n_in_range: int, max_points: int, stacklevel: int = 3) -> None:
@@ -200,30 +199,7 @@ def points_to_bev_nchw(
     row, col, key = cell_indices_and_keys(
         points, valid, bev_height=bev_height, bev_width=bev_width, bound=bound
     )
-    b = row.shape[0]
-    num_cells = bev_height * bev_width
-    ok = row >= 0
-    cid = torch.where(ok, row.long() * bev_width + col.long(), num_cells)  # dump cell
-    max_key = torch.full((b, num_cells + 1), -1, dtype=torch.int32, device=row.device)
-    max_key.scatter_reduce_(1, cid, key, reduce="amax", include_self=True)
-    max_key = max_key[:, :num_cells]
-
-    count = torch.clamp_max(bev_cell_counts(row, col, bev_height, bev_width), 63.0)
-    count = count.view(b, num_cells)
-
-    occupied = max_key >= 0
-    seg = torch.clamp_min(max_key, 0)
-    height_map = torch.where(
-        occupied, (seg >> 12).to(torch.float32) * _f32_reciprocal(8191.0), 0.0
-    )
-    intensity_map = torch.where(
-        occupied, (seg & 4095).to(torch.float32) * _f32_reciprocal(4095.0), 0.0
-    )
-    density_map = torch.clamp_max(
-        torch.log(count + 1.0) * _f32_reciprocal(float(np.log(64.0))), 1.0
-    )
-    bev = torch.stack([intensity_map, height_map, density_map], dim=1)
-    return bev.view(b, 3, bev_height, bev_width)
+    return bev_raster_reduce(row, col, key, bev_height, bev_width)
 
 
 def points_to_bev(

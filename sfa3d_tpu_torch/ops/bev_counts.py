@@ -1,56 +1,148 @@
-"""Exact per-cell point counts for the BEV raster: the port of the Pallas
-kernel `sfa3d_tpu/ops/bev_pallas.py:76` (`bev_cell_counts`).
+"""The BEV raster's per-cell reduction and exact per-cell point counts: the
+port of the Pallas kernel `sfa3d_tpu/ops/bev_pallas.py:76`
+(`bev_cell_counts`), redesigned for Hopper as one shared-memory tile pass.
 
 The TPU kernel built the count as bf16 one-hot matrix products because the
-TPU has no fast scatter. On Hopper the count is an integer atomic histogram
-(`csrc/bev_counts.cu`): one thread per point, `atomicAdd` into a zeroed
-int32 buffer, then a convert to float32. The work is bound by bytes: at the
-served shape (8, 32768) -> (8, 608, 608) the least the card must move is
-2.1 MB of indices read plus 11.8 MB of counts written, about 4.2 us at
-3.35 TB/s. The source note in the `.cu` file says what the simple version
-moves beyond that.
+TPU has no fast scatter. On Hopper one templated kernel (`csrc/bev_counts.cu`)
+gives a block one band of rows of one frame, keeps the band's accumulators
+in shared memory (integer atomics: exact in any order), and writes the
+finished band once. It has two entries:
+
+  bev_raster_reduce  (B, N) int32 row, col, key -> (B, 3, H, W) float32
+                     raster (intensity, height, density), channels first:
+                     everything the raster does after `cell_indices_and_keys`
+  bev_cell_counts    (B, N) int32 row, col -> (B, H, W) float32 exact counts,
+                     what the TPU kernel computes
+
+Both are bound by bytes: at the served shape (8, 32768) -> 608x608 the
+raster reads 3.1 MB and writes 35.5 MB (11.5 us at 3.35 TB/s), the counts
+read 2.1 MB and write 11.8 MB (4.2 us). `tile_plan` cuts the rows into
+bands whose accumulators fit the block's shared memory.
 
 Unlike the TPU kernel, which asserts N % 128 == 0 (bev_pallas.py:80; its
-docstring says 512), the port accepts any N.
+docstring says 512), the port accepts any N. Indices outside the raster
+count nowhere.
 
-`bev_cell_counts` launches the kernel for CUDA tensors (or raises) and
-takes the plain PyTorch version, `bev_cell_counts_plain`, only for tensors
-on the CPU. `bev_cell_counts.launches` counts the kernel launches, so a run
-can show that the served path went through the kernel.
+Each entry launches its kernel for CUDA tensors (or raises) and takes its
+plain PyTorch version (`*_plain`) only for tensors on the CPU. Each keeps a
+`launches` counter, so a run can show that the served path went through the
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from sfa3d_tpu_torch._build import load_library
 
 H = 608
 W = 608
+RASTER_BYTES_PER_CELL = 8  # int32 max key + int32 count
+COUNT_BYTES_PER_CELL = 4  # int32 count
+MAX_GRID_Y = 65535  # the grid's y dimension holds the batch
 
+_c_ptr, _c_i32, _c_i64, _c_f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
+    "bev_smem_limit": (ctypes.c_int, (_c_i32, ctypes.POINTER(_c_i32))),
+    "bev_raster_reduce_cuda": (
+        ctypes.c_int,
+        (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32,
+         _c_f32, _c_f32, _c_f32, _c_i32, _c_ptr),
+    ),
     "bev_cell_counts_cuda": (
         ctypes.c_int,
-        (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-         ctypes.c_void_p),
+        (_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32, _c_i32, _c_ptr),
     ),
 }
 _count_lock = threading.Lock()
+_smem_limits = {}  # device index -> bytes of shared memory a block may use
 
 
-def _check(row: torch.Tensor, col: torch.Tensor) -> None:
-    if row.dim() != 2 or row.shape != col.shape:
+def _f32_reciprocal(c: float) -> float:
+    """1/c rounded to float32 (a Python float that float32 holds exactly)."""
+    return float(np.float32(1.0 / c))
+
+
+_INV_4095 = _f32_reciprocal(4095.0)
+_INV_8191 = _f32_reciprocal(8191.0)
+_INV_LOG64 = _f32_reciprocal(float(np.log(64.0)))
+
+
+def tile_plan(B: int, H: int, W: int, bytes_per_cell: int, smem_limit: int) -> Tuple[int, int]:
+    """Bands of rows for the tile kernel -> (tile_rows, n_tiles).
+
+    A band holds as many rows of W cells as fit `smem_limit` bytes at
+    `bytes_per_cell` (the kernel pads a band to a multiple of 4 cells); the
+    rows are then spread evenly over the fewest bands, so band t covers rows
+    [t * tile_rows, min(H, (t + 1) * tile_rows)) and every row lies in
+    exactly one band. The grid is (n_tiles, B). Raises ValueError when one
+    row of W cells alone exceeds the shared memory, or B the grid."""
+    if H < 1 or W < 1 or B < 0:
+        raise ValueError(f"tile_plan needs H, W >= 1 and B >= 0; got B={B}, H={H}, W={W}")
+    if B > MAX_GRID_Y:
+        raise ValueError(f"batch {B} exceeds the grid's y dimension ({MAX_GRID_Y})")
+    rows_fit = (smem_limit // bytes_per_cell) // 4 * 4 // W
+    if rows_fit < 1:
         raise ValueError(
-            f"row and col must both be (B, N); got {tuple(row.shape)} and {tuple(col.shape)}"
+            f"one raster row of {W} cells needs {W * bytes_per_cell} bytes of shared "
+            f"memory; a block has {smem_limit}"
         )
-    if row.dtype != torch.int32 or col.dtype != torch.int32:
-        raise TypeError(f"row and col must be int32; got {row.dtype} and {col.dtype}")
-    if row.device != col.device:
-        raise ValueError(f"row and col lie on {row.device} and {col.device}")
+    n_tiles = -(-H // rows_fit)
+    tile_rows = -(-H // n_tiles)
+    return tile_rows, -(-H // tile_rows)
+
+
+def _check(*tensors: torch.Tensor) -> None:
+    first = tensors[0]
+    if first.dim() != 2 or any(t.shape != first.shape for t in tensors):
+        raise ValueError(f"indices must all be (B, N); got {[tuple(t.shape) for t in tensors]}")
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError(f"indices must be int32; got {[t.dtype for t in tensors]}")
+    if any(t.device != first.device for t in tensors):
+        raise ValueError(f"indices lie on {[str(t.device) for t in tensors]}")
+
+
+def _cuda_launch_setup(name: str, tensors) -> Tuple[ctypes.CDLL, torch.device]:
+    """The library and device for a launch; raises for a device that is not
+    CUDA (the CPU never gets here) or a tensor that is not contiguous."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous indices")
+    return load_library("bev_counts", _SIGNATURES), dev
+
+
+def _smem_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
+    limit = _smem_limits.get(dev.index)
+    if limit is None:
+        v = _c_i32(0)
+        err = lib.bev_smem_limit(dev.index, ctypes.byref(v))
+        if err != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed on {dev}: cudaError {err}")
+        limit = _smem_limits[dev.index] = v.value
+    return limit
+
+
+def shared_memory_limit(device) -> int:
+    """Bytes of shared memory one block may use on the CUDA `device` (the
+    `smem_limit` the wrappers give `tile_plan`)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return _smem_limit(load_library("bev_counts", _SIGNATURES), dev)
+
+
+def _finish(fn, name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} CUDA launch failed: cudaError {err}")
+    with _count_lock:
+        fn.launches += 1
 
 
 def bev_cell_counts_plain(row: torch.Tensor, col: torch.Tensor,
@@ -72,29 +164,76 @@ def bev_cell_counts_plain(row: torch.Tensor, col: torch.Tensor,
 def bev_cell_counts(row: torch.Tensor, col: torch.Tensor,
                     H: int = H, W: int = W) -> torch.Tensor:
     """(B, N) int32 cell indices (-1 = invalid) -> (B, H, W) float32 exact
-    per-cell point counts. CUDA tensors launch `csrc/bev_counts.cu`; CPU
-    tensors take `bev_cell_counts_plain`."""
+    per-cell point counts. CUDA tensors launch the counts instantiation of
+    `csrc/bev_counts.cu` (one launch); CPU tensors take
+    `bev_cell_counts_plain`."""
     _check(row, col)
     if row.device.type == "cpu":
         return bev_cell_counts_plain(row, col, H, W)
-    if row.device.type != "cuda":
-        raise ValueError(f"bev_cell_counts runs on cuda or cpu, not {row.device}")
-    if not (row.is_contiguous() and col.is_contiguous()):
-        raise ValueError("bev_cell_counts needs contiguous row and col")
-    lib = load_library("bev_counts", _SIGNATURES)
+    lib, dev = _cuda_launch_setup("bev_cell_counts", (row, col))
     b, n = row.shape
-    counts_i32 = torch.zeros((b, H * W), dtype=torch.int32, device=row.device)
-    out = torch.empty((b, H, W), dtype=torch.float32, device=row.device)
-    with torch.cuda.device(row.device):
-        err = lib.bev_cell_counts_cuda(
-            row.data_ptr(), col.data_ptr(), counts_i32.data_ptr(), out.data_ptr(),
-            b, n, H, W, torch.cuda.current_stream(row.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bev_cell_counts CUDA launch failed: cudaError {err}")
-    with _count_lock:
-        bev_cell_counts.launches += 1
+    tile_rows, n_tiles = tile_plan(b, H, W, COUNT_BYTES_PER_CELL, _smem_limit(lib, dev))
+    out = row.new_empty((b, H, W), dtype=torch.float32)
+    err = lib.bev_cell_counts_cuda(
+        row.data_ptr(), col.data_ptr(), out.data_ptr(), b, n, H, W, tile_rows, n_tiles,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _finish(bev_cell_counts, "bev_cell_counts", err)
+    return out
+
+
+def bev_raster_reduce_plain(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
+                            H: int = H, W: int = W) -> torch.Tensor:
+    """Plain PyTorch version: (B, N) int32 row, col and packed key (the
+    output of `ops/bev.py::cell_indices_and_keys`; -1 = dropped point) ->
+    (B, 3, H, W) float32 raster, channels first:
+        0: intensity of the max key   (key & 4095) / 4095
+        1: height of the max key      (key >> 12) / 8191
+        2: density                    min(1, log(min(n, 63) + 1) / log 64)
+    Each division is a multiplication by the float32 reciprocal, as XLA
+    compiles it."""
+    _check(row, col, key)
+    b = row.shape[0]
+    num_cells = H * W
+    ok = row >= 0
+    cid = torch.where(ok, row.long() * W + col.long(), num_cells)  # dump cell
+    max_key = torch.full((b, num_cells + 1), -1, dtype=torch.int32, device=row.device)
+    max_key.scatter_reduce_(1, cid, key, reduce="amax", include_self=True)
+    max_key = max_key[:, :num_cells]
+
+    count = torch.clamp_max(bev_cell_counts_plain(row, col, H, W), 63.0)
+    count = count.view(b, num_cells)
+
+    occupied = max_key >= 0
+    seg = torch.clamp_min(max_key, 0)
+    height_map = torch.where(occupied, (seg >> 12).to(torch.float32) * _INV_8191, 0.0)
+    intensity_map = torch.where(occupied, (seg & 4095).to(torch.float32) * _INV_4095, 0.0)
+    density_map = torch.clamp_max(torch.log(count + 1.0) * _INV_LOG64, 1.0)
+    bev = torch.stack([intensity_map, height_map, density_map], dim=1)
+    return bev.view(b, 3, H, W)
+
+
+def bev_raster_reduce(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
+                      H: int = H, W: int = W) -> torch.Tensor:
+    """(B, N) int32 row, col and packed key -> (B, 3, H, W) float32 raster
+    (see `bev_raster_reduce_plain`). CUDA tensors launch the raster
+    instantiation of `csrc/bev_counts.cu` (one launch); CPU tensors take
+    `bev_raster_reduce_plain`."""
+    _check(row, col, key)
+    if row.device.type == "cpu":
+        return bev_raster_reduce_plain(row, col, key, H, W)
+    lib, dev = _cuda_launch_setup("bev_raster_reduce", (row, col, key))
+    b, n = row.shape
+    tile_rows, n_tiles = tile_plan(b, H, W, RASTER_BYTES_PER_CELL, _smem_limit(lib, dev))
+    out = row.new_empty((b, 3, H, W), dtype=torch.float32)
+    err = lib.bev_raster_reduce_cuda(
+        row.data_ptr(), col.data_ptr(), key.data_ptr(), out.data_ptr(), b, n, H, W,
+        tile_rows, n_tiles, _INV_4095, _INV_8191, _INV_LOG64,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _finish(bev_raster_reduce, "bev_raster_reduce", err)
     return out
 
 
 bev_cell_counts.launches = 0
+bev_raster_reduce.launches = 0

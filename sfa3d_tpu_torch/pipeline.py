@@ -1,6 +1,6 @@
 """End-to-end frame pipelines in PyTorch, the port of `sfa3d_tpu/pipeline.py`.
 
-raw padded points -> BEV raster (hand-written CUDA count kernel) -> KFPN ->
+raw padded points -> BEV raster (hand-written CUDA tile kernel) -> KFPN ->
 clamped sigmoid -> peak decode -> metric 7-DOF boxes, all on one device and
 under `torch.inference_mode()`. Public tensors keep the JAX layout (NHWC
 raster and heads); the model runs NCHW inside.

@@ -15,10 +15,18 @@ import torch
 from sfa3d_tpu.ops import bev as jbev
 from sfa3d_tpu_torch.config import kitti as cnf
 from sfa3d_tpu_torch.ops import bev as tbev
-from sfa3d_tpu_torch.ops.bev_counts import bev_cell_counts, bev_cell_counts_plain
+from sfa3d_tpu_torch.ops.bev_counts import (
+    COUNT_BYTES_PER_CELL,
+    RASTER_BYTES_PER_CELL,
+    bev_cell_counts,
+    bev_cell_counts_plain,
+    bev_raster_reduce_plain,
+    tile_plan,
+)
 
 N = 4096
 DENSITY_TOL = 1.2e-7
+H100_SMEM = 232448  # shared memory one block may use on an H100
 
 
 def _np_counts(row, col, H=608, W=608):
@@ -115,20 +123,46 @@ def _scan_one_cell(rng):
     return p, valid
 
 
+def _band_edge_rows():
+    """The rows k * tile_rows - 1 and k * tile_rows where two bands of the
+    tile kernel meet, for the raster's and the counts' plans on an H100."""
+    rows = set()
+    for bytes_per_cell in (RASTER_BYTES_PER_CELL, COUNT_BYTES_PER_CELL):
+        t, _ = tile_plan(8, 608, 608, bytes_per_cell, H100_SMEM)
+        rows |= {e for m in range(t, 608, t) for e in (m - 1, m)}
+    return np.array(sorted(rows))
+
+
+def _scan_band_boundaries(rng):
+    """Every point inside a cell of a row where two bands meet."""
+    row = rng.choice(_band_edge_rows(), N)
+    x = ((row + rng.uniform(0.2, 0.8, N)) * cnf.DISCRETIZATION).astype(np.float32)
+    y = rng.uniform(-25, 25, N).astype(np.float32)
+    z = rng.uniform(-2.7, 1.2, N).astype(np.float32)
+    r = rng.uniform(0, 1, N).astype(np.float32)
+    return np.stack([x, y, z, r], 1), np.ones(N, bool)
+
+
 SCANS = {
     "random": _scan_random,
     "cell_edges": _scan_cell_edges,
     "nan_intensity": _scan_nan_intensity,
     "empty": _scan_empty,
     "saturated_cell": _scan_one_cell,
+    "band_boundaries": _scan_band_boundaries,
 }
 
 
 @pytest.mark.parametrize("kind", sorted(SCANS))
 def test_points_to_bev_matches_jax(rng, kind):
+    """points_to_bev, and bev_raster_reduce_plain on the prelude's indices
+    and keys, equal the JAX raster; the two are the same bits."""
     p, valid = SCANS[kind](rng)
     want = np.asarray(jbev.points_to_bev(jnp.asarray(p), jnp.asarray(valid)))
     got = tbev.points_to_bev(torch.from_numpy(p), torch.from_numpy(valid)).numpy()
+    idx = tbev.cell_indices_and_keys(torch.from_numpy(p[None]), torch.from_numpy(valid[None]))
+    plain = bev_raster_reduce_plain(*idx)[0].permute(1, 2, 0).numpy()
+    np.testing.assert_array_equal(plain.view(np.uint32), got.view(np.uint32))
     assert got.shape == want.shape == (608, 608, 3)
     np.testing.assert_array_equal(got[..., 0], want[..., 0])
     np.testing.assert_array_equal(got[..., 1], want[..., 1])
@@ -141,6 +175,69 @@ def test_points_to_bev_matches_jax(rng, kind):
         assert got[r, c, 1] == want[r, c, 1]
     else:
         assert (got[..., 2] > 0).sum() > 100
+
+
+def _tile_kernel_numpy(row, col, key, H, W, tile_rows, n_tiles):
+    """The tile kernel's band arithmetic in numpy: block (t, b) owns rows
+    [t * tile_rows, ...) of frame b and takes a point where the unsigned
+    row - r0 falls below its row count and 0 <= col < W."""
+    B = row.shape[0]
+    counts = np.zeros((B, H, W), np.int64)
+    max_key = np.full((B, H, W), -1, np.int64)
+    for b in range(B):
+        for t in range(n_tiles):
+            r0 = t * tile_rows
+            lr = row[b].astype(np.uint32) - np.uint32(r0)
+            ok = (lr < min(tile_rows, H - r0)) & (col[b] >= 0) & (col[b] < W)
+            np.add.at(counts[b], (lr[ok] + r0, col[b][ok]), 1)
+            np.maximum.at(max_key[b], (lr[ok] + r0, col[b][ok]), key[b][ok])
+    f32 = np.float32
+    occupied = max_key >= 0
+    intensity = np.where(occupied, (max_key & 4095).astype(f32) * f32(1 / 4095), f32(0))
+    height = np.where(occupied, (max_key >> 12).astype(f32) * f32(1 / 8191), f32(0))
+    density = np.minimum(
+        np.log(np.minimum(counts, 63).astype(f32) + f32(1)) * f32(1 / np.log(64.0)), f32(1))
+    return counts.astype(f32), np.stack([intensity, height, density], 1)
+
+
+@pytest.mark.parametrize("kind", ["random", "band_boundaries"])
+@pytest.mark.parametrize("bytes_per_cell", [RASTER_BYTES_PER_CELL, COUNT_BYTES_PER_CELL])
+def test_tile_bands_give_the_plain_counts_and_raster(rng, kind, bytes_per_cell):
+    """Cut into the bands of the kernel's plan on an H100, the counts and the
+    raster are the plain versions' (rows -3..H+2 and columns -3..W+2 included
+    for the counts)."""
+    p, valid = SCANS[kind](rng)
+    row, col, key = (t.numpy() for t in tbev.cell_indices_and_keys(
+        torch.from_numpy(p[None]), torch.from_numpy(valid[None])))
+    plan = tile_plan(1, 608, 608, bytes_per_cell, H100_SMEM)
+    counts, raster = _tile_kernel_numpy(row, col, key, 608, 608, *plan)
+    want = bev_raster_reduce_plain(*(torch.from_numpy(a) for a in (row, col, key))).numpy()
+    np.testing.assert_array_equal(counts, bev_cell_counts_plain(
+        torch.from_numpy(row), torch.from_numpy(col)).numpy())
+    np.testing.assert_array_equal(raster[:, :2], want[:, :2])
+    np.testing.assert_allclose(raster[:, 2], want[:, 2], rtol=0, atol=DENSITY_TOL)
+
+    wild_row = rng.integers(-3, 611, row.shape).astype(np.int32)
+    wild_col = rng.integers(-3, 611, row.shape).astype(np.int32)
+    counts, _ = _tile_kernel_numpy(wild_row, wild_col, key, 608, 608, *plan)
+    np.testing.assert_array_equal(counts, _np_counts(wild_row, wild_col))
+
+
+@pytest.mark.parametrize("B,H,W", [(1, 608, 608), (8, 608, 608), (3, 40, 24), (2, 64, 64)])
+def test_tile_plan_covers_every_row_once_within_shared_memory(B, H, W):
+    for bytes_per_cell in (RASTER_BYTES_PER_CELL, COUNT_BYTES_PER_CELL):
+        for smem in (H100_SMEM, 48 * 1024, W * bytes_per_cell + 12):
+            tile_rows, n_tiles = tile_plan(B, H, W, bytes_per_cell, smem)
+            bands = [list(range(t * tile_rows, min(H, (t + 1) * tile_rows))) for t in range(n_tiles)]
+            assert all(bands) and sum(bands, []) == list(range(H))
+            assert -(-tile_rows * W // 4) * 4 * bytes_per_cell <= smem
+
+
+def test_tile_plan_raises_when_a_row_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        tile_plan(1, 608, 608, RASTER_BYTES_PER_CELL, 608 * RASTER_BYTES_PER_CELL - 1)
+    with pytest.raises(ValueError, match="grid"):
+        tile_plan(65536, 608, 608, RASTER_BYTES_PER_CELL, H100_SMEM)
 
 
 def test_cell_indices_match_jax_floor_at_cell_edges(rng):

@@ -76,13 +76,60 @@ def test_detect_frames_raises_without_gpu(monkeypatch):
 
 def test_count_kernel_has_no_silent_fallback():
     """Only CPU tensors take the plain version; any other device raises."""
-    from sfa3d_tpu_torch.ops.bev_counts import bev_cell_counts
+    from sfa3d_tpu_torch.ops.bev_counts import bev_cell_counts, bev_raster_reduce
 
     row = torch.zeros((1, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         bev_cell_counts(row, row)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bev_raster_reduce(row, row, row)
+    i64 = torch.zeros((1, 8), dtype=torch.int64)
     with pytest.raises(TypeError, match="int32"):
-        bev_cell_counts(torch.zeros((1, 8), dtype=torch.int64), torch.zeros((1, 8), dtype=torch.int64))
+        bev_cell_counts(i64, i64)
+    with pytest.raises(TypeError, match="int32"):
+        bev_raster_reduce(i64, i64, i64)
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the launch path of
+    a wrapper without a GPU."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("entry", ["bev_cell_counts", "bev_raster_reduce"])
+def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
+    """A CUDA-typed call whose launch returns a CUDA error raises; it never
+    returns the plain result and never counts a launch."""
+    from types import SimpleNamespace
+
+    from sfa3d_tpu_torch.ops import bev_counts
+
+    def smem_limit(device, out):
+        out._obj.value = 232448
+        return 0
+
+    def refuse(*args):
+        return 98  # cudaErrorInvalidDeviceFunction
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    fake = SimpleNamespace(bev_smem_limit=smem_limit, bev_cell_counts_cuda=refuse,
+                           bev_raster_reduce_cuda=refuse)
+    monkeypatch.setattr(bev_counts, "load_library", lambda name, signatures: fake)
+    monkeypatch.setattr(bev_counts, "_smem_limits", {})
+    monkeypatch.setattr(bev_counts, f"{entry}_plain", plain)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+    fn = getattr(bev_counts, entry)
+    idx = torch.Tensor._make_subclass(_CudaTyped, torch.zeros((2, 64), dtype=torch.int32))
+    args = (idx, idx) if entry == "bev_cell_counts" else (idx, idx, idx)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
+        fn(*args)
+    assert fn.launches == before
 
 
 def test_kernel_sources_ship_with_the_package():
