@@ -1,10 +1,12 @@
-"""Drive the PyTorch port's LiDAR serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
   device  the card (name and power limit from nvidia-smi); TF32 off
-  build   nvcc builds every kernel in sfa3d_tpu_torch/csrc/ (timed)
+  build   nvcc builds every kernel in sfa3d_tpu_torch/csrc/, one nvcc per
+          source, all started together (timed)
   kernel  both entries of the BEV tile kernel (csrc/bev_counts.cu),
           bev_raster_reduce and bev_cell_counts, vs their plain PyTorch
           versions on (8, 32768) inputs: the served shape with and without
@@ -27,6 +29,25 @@ Phases, each printing one JSON line:
           (cell_indices_and_keys -> bev_cell_counts, two launches of 8):
           each frame's counts sum to its in-range points, and the density
           they give equals the served raster's channel 2
+  fusion_kernels  the three loop kernels of csrc/fusion_loops.cu
+          (hard_nms_keep, soft_nms_gaussian, greedy_match) vs their plain
+          PyTorch versions on the card: random boxes, all-invalid frames,
+          equal scores (ties), K = 256 class-offset candidates and the
+          served shapes (8 x 256 YOLO candidates; 8 x 114 fused slots;
+          8 x 64 YOLO x 50 SFA). Masks and indices exact, soft-NMS scores
+          within 1e-6 relative (expf vs PyTorch's exp: an ulp or two, times
+          up to 114 decays); event, device and plain ms at the served shape
+  yolo    YOLOv8n heads at 1 x 224 x 640 on the GPU vs the CPU, per level
+  fused_serve  BatchingFusedServer(FusedDetector(imgsz=(224, 640))),
+          max_batch 8, answers 16 requests (scan + seeded 375 x 1242 uint8
+          image + default calibration) from 4 threads; the raster kernel and
+          each loop kernel launched once per batch (warmups included);
+          every reply equals the CPU path's as a set of detections (integer
+          boxes, classes, source exact, scores within 1e-4) when the CPU
+          path is given the served networks' outputs for that frame, and the
+          CPU networks' own outputs lie within 1e-3 of those; the replies
+          hold YOLO, SFA and at least 16 fused rows. Per-batch ms at buckets
+          1 and 8 and a stage split
 Then one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -49,9 +70,21 @@ import torch
 
 from sfa3d_tpu_torch import _build
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.detector import Detector
+from sfa3d_tpu_torch.detector import Detector, FusedDetector
+from sfa3d_tpu_torch.fusion.batch import _fuse_one, _unletterbox_xywh
+from sfa3d_tpu_torch.fusion.boxes2d import project_boxes_to_image
+from sfa3d_tpu_torch.fusion.nms import _stable_desc_order
+from sfa3d_tpu_torch.geometry.calibration import KittiCalibration
 from sfa3d_tpu_torch.models import create_model
+from sfa3d_tpu_torch.models.yolov8 import (
+    YOLOv8,
+    decode_predictions,
+    forward_levels,
+    letterbox,
+    select_detections,
+)
 from sfa3d_tpu_torch.ops import bev as bev_ops
+from sfa3d_tpu_torch.ops import fusion_loops
 from sfa3d_tpu_torch.ops.bev_counts import (
     COUNT_BYTES_PER_CELL,
     RASTER_BYTES_PER_CELL,
@@ -62,8 +95,8 @@ from sfa3d_tpu_torch.ops.bev_counts import (
     shared_memory_limit,
     tile_plan,
 )
-from sfa3d_tpu_torch.pipeline import _decode_heads, forward_heads
-from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer
+from sfa3d_tpu_torch.pipeline import _decode_heads, _heads_nhwc, forward_heads
+from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer, BatchingFusedServer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -73,6 +106,13 @@ B, N = 8, cnf.MAX_POINTS_FILTERED
 H, W = cnf.BEV_HEIGHT, cnf.BEV_WIDTH
 DENSITY_TOL = 1.2e-7  # one float32 ulp of log between two libms, scaled
 KERNEL_NAME = r"bev_tile_kernel"
+CANVAS = (224, 640)  # the ultralytics predict canvas of a 375 x 1242 KITTI frame
+IMG_HW = (375, 1242)
+SOFT_NMS_RTOL = 1e-6  # expf vs PyTorch's exp: an ulp or two, compounded over the decays
+SCORE_TOL = 1e-4  # fused scores GPU vs CPU: conv sums in another order
+NET_TOL = 1e-3  # KFPN heads and YOLO levels GPU vs CPU (the model phase's tolerance)
+IOU_FLOPS = 22  # float operations of one IoU and its comparison
+DEVICE = torch.device("cuda")  # the fusion phases' device
 
 
 def emit(obj) -> None:
@@ -102,9 +142,9 @@ def self_device_us(evt) -> float:
     return 0.0
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 3):
-    """Mean device time per fn() call of the kernels named KERNEL_NAME,
-    from torch.profiler (CUPTI); None if the profiler saw none."""
+def device_ms(fn, reps: int = 20, warmup: int = 3, kernel: str = KERNEL_NAME):
+    """Mean device time per fn() call of the kernels whose name matches
+    `kernel`, from torch.profiler (CUPTI); None if the profiler saw none."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -113,7 +153,7 @@ def device_ms(fn, reps: int = 20, warmup: int = 3):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(self_device_us(e) for e in prof.key_averages() if re.search(KERNEL_NAME, e.key))
+    us = sum(self_device_us(e) for e in prof.key_averages() if re.search(kernel, e.key))
     return us / reps / 1e3 if us > 0 else None
 
 
@@ -526,19 +566,496 @@ def phase_counts(card, scans):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the fusion path
+# ---------------------------------------------------------------------------
+
+LOOP_B = 8  # frames per batch in the fusion_kernels phase: the served bucket
+LOOP_ENTRIES = {  # entry -> (kernel symbol, TPU-side function it replaces)
+    "hard_nms_keep": ("hard_nms_keep_kernel", "sfa3d_tpu/fusion/nms.py:33"),
+    "soft_nms_gaussian": ("soft_nms_gaussian_kernel", "sfa3d_tpu/fusion/nms.py:54"),
+    "greedy_match": ("greedy_match_kernel", "sfa3d_tpu/fusion/fuse.py:64"),
+}
+NO_LIBRARY = ("none: no single PyTorch call computes it (torchvision is absent, and its "
+              "NMS keeps other rules)")
+
+
+def loop_boxes(rng, b, k, grid=False):
+    """(b, k, 4) xywh boxes; `grid` puts them on a coarse grid (many
+    overlaps and exactly tied IoUs)."""
+    if grid:
+        xy = rng.integers(0, 10, (b, k, 2)).astype(np.float32) * 12
+    else:
+        xy = rng.uniform(0, 600, (b, k, 2)).astype(np.float32)
+    return np.concatenate([xy, rng.uniform(4, 120, (b, k, 2)).astype(np.float32)], -1)
+
+
+def loop_inputs(rng):
+    """The fusion_kernels phase's inputs: {name: (boxes, scores, valid)} for
+    the two NMS entries and {name: (yolo, yolo_valid, sfa, sfa_valid)} for
+    the match. The served shapes: 256 YOLO candidates (hard NMS), 114
+    fused slots (soft-NMS), 64 YOLO x 50 SFA boxes (the match)."""
+    def scored(k, grid=False):
+        return (loop_boxes(rng, LOOP_B, k, grid), rng.uniform(0, 1, (LOOP_B, k)).astype(np.float32),
+                rng.random((LOOP_B, k)) < 0.8)
+
+    nms_cases = {"random": scored(114)}
+    bx, sc, v = scored(114)
+    v[[2, 5]] = False
+    nms_cases["all_invalid_frames"] = (bx, sc, v)
+    bx, sc, v = scored(114, grid=True)
+    sc[:] = 0.5
+    nms_cases["equal_scores"] = (bx, sc, v)
+    bx, sc, v = scored(114, grid=True)
+    bx[:, 1::2] = bx[:, ::2]  # duplicates: IoU exactly 1
+    nms_cases["duplicates"] = (bx, sc, v)
+    bx, sc, v = scored(256, grid=True)  # the YOLO NMS: class-offset boxes, scores sorted
+    bx[..., :2] += rng.integers(0, 80, (LOOP_B, 256, 1)).astype(np.float32) * 4096.0
+    nms_cases["class_offset_256"] = (bx, np.sort(sc, 1)[:, ::-1].copy(), v)
+
+    def matched(ky, ks, grid=False):
+        yolo = loop_boxes(rng, LOOP_B, ky, grid)
+        sfa = yolo[:, :ks] + rng.normal(0, 4, (LOOP_B, ks, 4)).astype(np.float32)
+        return yolo, rng.random((LOOP_B, ky)) < 0.8, sfa, rng.random((LOOP_B, ks)) < 0.8
+
+    match_cases = {"served_64x50": matched(64, 50)}
+    y, yv, sf, sv = matched(64, 50)
+    yv[3] = False
+    sv[[3, 6]] = False
+    match_cases["all_invalid_frames"] = (y, yv, sf, sv)
+    y, yv, sf, sv = matched(64, 50, grid=True)
+    sf[:, 1::2] = sf[:, ::2]  # tied IoUs: the lowest index wins
+    match_cases["ties"] = (y, yv, sf, sv)
+    match_cases["wide_256x256"] = matched(256, 256, grid=True)
+    return nms_cases, match_cases
+
+
+def loop_bound(bytes_moved, n_iou):
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_iou * IOU_FLOPS / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |difference| over the outputs of a loop entry and its plain
+    version (masks and indices compare as integers)."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return max(float((g.double() - w.double()).abs().max().item()) for g, w in pairs)
+
+
+def phase_fusion_kernels(card):
+    """Each loop entry vs its plain version on the card; times at the served
+    shapes. Returns the three kernel records (launches filled in later)."""
+    dev = DEVICE
+    nms_cases, match_cases = loop_inputs(np.random.default_rng(SEED + 5))
+    checks = {}
+    soft_rel = 0.0
+    for name, arrays in nms_cases.items():
+        boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in arrays)
+        order = _stable_desc_order(scores, valid)
+        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+        svalid = torch.gather(valid, 1, order).contiguous()
+        keep = fusion_loops.hard_nms_keep(sboxes, svalid, 0.45)
+        keep_plain = fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45)
+        out, surv = fusion_loops.soft_nms_gaussian(boxes, scores, valid)
+        out_plain, surv_plain = fusion_loops.soft_nms_gaussian_plain(boxes, scores, valid)
+        torch.cuda.synchronize()
+        if not torch.equal(keep, keep_plain):
+            raise AssertionError(f"hard_nms_keep disagrees with its plain version on {name}")
+        if not torch.equal(surv, surv_plain):
+            raise AssertionError(f"soft_nms_gaussian's mask disagrees with its plain version on {name}")
+        rel = ((out - out_plain).abs() / out_plain.abs().clamp_min(1e-30)).max().item()
+        if not rel <= SOFT_NMS_RTOL:
+            raise AssertionError(f"soft_nms_gaussian's scores off by {rel} relative on {name}")
+        if name == "all_invalid_frames" and (keep[[2, 5]].any() or surv[[2, 5]].any()):
+            raise AssertionError("an all-invalid frame kept a box")
+        soft_rel = max(soft_rel, rel)
+        checks[name] = {"shape": list(boxes.shape[:2]), "kept": int(keep.sum().item()),
+                        "suppressed": int((svalid & ~keep).sum().item()),
+                        "soft_survivors": int(surv.sum().item()), "soft_max_rel_err": rel,
+                        "soft_bit_exact": torch.equal(out, out_plain)}
+    for name, arrays in match_cases.items():
+        y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in arrays)
+        idx, m = fusion_loops.greedy_match(y, yv, sf, sv, 0.5)
+        idx_plain, m_plain = fusion_loops.greedy_match_plain(y, yv, sf, sv, 0.5)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, idx_plain) and torch.equal(m, m_plain)):
+            raise AssertionError(f"greedy_match disagrees with its plain version on {name}")
+        checks[f"match_{name}"] = {"shape": [list(y.shape[:2]), list(sf.shape[:2])],
+                                   "matches": int((idx >= 0).sum().item())}
+    if checks["match_served_64x50"]["matches"] == 0 or checks["class_offset_256"]["suppressed"] == 0:
+        raise AssertionError("the served-shape inputs exercised nothing")
+    emit({"phase": "fusion_kernels", "checks": checks, "card": card["nvidia_smi"]})
+
+    # times at the served shapes
+    boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in nms_cases["class_offset_256"])
+    order = _stable_desc_order(scores, valid)
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    svalid = torch.gather(valid, 1, order).contiguous()
+    fboxes, fscores, fvalid = (torch.from_numpy(a).to(dev) for a in nms_cases["random"])
+    y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in match_cases["served_64x50"])
+    keep = fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45)
+    kept_before = torch.cumsum(keep.int(), 1) - keep.int()
+    calls = {
+        # (call, plain call, bytes in + out, IoUs the data needs, steps)
+        "hard_nms_keep": (
+            lambda: fusion_loops.hard_nms_keep(sboxes, svalid, 0.45),
+            lambda: fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45),
+            sboxes.numel() * 4 + 2 * svalid.numel(),
+            int((kept_before * svalid).sum().item()), int(svalid.sum(1).max().item())),
+        "soft_nms_gaussian": (
+            lambda: fusion_loops.soft_nms_gaussian(fboxes, fscores, fvalid),
+            lambda: fusion_loops.soft_nms_gaussian_plain(fboxes, fscores, fvalid),
+            fboxes.numel() * 4 + fscores.numel() * 4 * 2 + 2 * fvalid.numel(),
+            int((fvalid.sum(1) * (fvalid.sum(1) - 1) // 2).sum().item()), int(fvalid.sum(1).max().item())),
+        "greedy_match": (
+            lambda: fusion_loops.greedy_match(y, yv, sf, sv, 0.5),
+            lambda: fusion_loops.greedy_match_plain(y, yv, sf, sv, 0.5),
+            (y.numel() + sf.numel()) * 4 + yv.numel() * 5 + sv.numel() * 2,
+            int((yv.sum(1) * sv.sum(1)).sum().item()), int(yv.sum(1).max().item())),
+    }
+    recs = []
+    for entry, (call, plain, bytes_moved, n_iou, steps) in calls.items():
+        symbol, replaces = LOOP_ENTRIES[entry]
+        bound_ms, bound_by = loop_bound(bytes_moved, n_iou)
+        dms = device_ms(call, kernel=symbol)
+        rec = {
+            "name": entry, "route": "cuda", "source": "sfa3d_tpu_torch/csrc/fusion_loops.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max_abs_err(call(), plain()),
+            "ms": cuda_ms(call), "device_ms": dms, "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library": NO_LIBRARY, "bound_share_device": bound_ms / dms if dms else None,
+            "shape": list(sboxes.shape[:2]) if entry == "hard_nms_keep" else
+            list(fboxes.shape[:2]) if entry == "soft_nms_gaussian" else [[LOOP_B, 64], [LOOP_B, 50]],
+            "dependent_steps": steps, "ious_needed": n_iou, "bytes": bytes_moved,
+        }
+        if entry == "soft_nms_gaussian":
+            rec["max_rel_err"] = soft_rel
+        recs.append(rec)
+        emit({"phase": "fusion_kernel_time", **{k: v for k, v in rec.items()
+                                                 if k not in ("route", "source", "launches")},
+              "card": card["nvidia_smi"]})
+    return recs
+
+
+def phase_yolo(card):
+    cpu_model = YOLOv8("n").init_weights(torch.Generator().manual_seed(SEED + 1)).eval()
+    gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
+    image = np.random.default_rng(SEED + 3).integers(0, 256, (*IMG_HW, 3)).astype(np.uint8)
+    img = torch.from_numpy(letterbox(image, CANVAS)[0][None])
+    with torch.inference_mode():
+        cpu = forward_levels(cpu_model, img)
+        gpu = forward_levels(gpu_model, img.to(DEVICE))
+    errs = [[(g.cpu() - c).abs().max().item() for g, c in zip(gl, cl)] for gl, cl in zip(gpu, cpu)]
+    worst = max(max(e) for e in errs)
+    if not worst <= NET_TOL:
+        raise AssertionError(f"YOLOv8n heads GPU vs CPU differ by {errs}")
+    emit({"phase": "yolo", "canvas": [1, *CANVAS, 3], "levels": [list(l[0].shape) for l in gpu],
+          "max_abs_err_box_cls_per_level": errs,
+          "max_abs_out_box_cls_per_level": [[t.abs().max().item() for t in lv] for lv in cpu],
+          "card": card["nvidia_smi"]})
+
+
+YOLO_GATE_TOP = 150  # YOLO anchors of the reference frame above the 0.25 gate
+SFA_HEIGHT_BUMP = 38.5  # m added to the KFPN's height bias: 3D boxes about 40 m high
+SFA_Z_BUMP = -17.3  # m added to its z bias: their bottoms about 20 m below the sensor
+YOLO_REACH = {1: 8, 3: 15}  # DFL side (1 top, 3 bottom) -> the bin, in strides, that takes its mass
+YOLO_REACH_BUMP = 8.0  # added to that bin's logit
+MIN_FUSED_PER_FRAME = 1  # fused (source 2) rows the 16 replies must hold, per frame
+
+
+def yolo_gate_bias(yolo: torch.nn.Module, image: np.ndarray) -> float:
+    """The class-conv bias that puts the YOLO_GATE_TOP-th best anchor of
+    `image` just above the 0.25 gate, once the class logits are spread by
+    x1000 (see bump_fused_biases)."""
+    probe = copy.deepcopy(yolo).cpu()
+    with torch.no_grad():
+        for i in range(3):
+            probe.model[22].cv3[i][2].weight *= 1000.0
+            probe.model[22].cv3[i][2].bias.zero_()
+        levels = forward_levels(probe, torch.from_numpy(letterbox(image, CANVAS)[0][None]))
+    best = torch.cat([c.reshape(-1, c.shape[-1]) for _, c in levels]).amax(-1).double()
+    top = torch.topk(best, YOLO_GATE_TOP + 1).values
+    return float(np.log(0.25 / 0.75) - (top[-2] + top[-1]).item() / 2)
+
+
+def bump_fused_biases(fd, gate_bias: float) -> None:
+    """Random weights that give the fusion stages work: heatmap peaks above
+    the threshold, and YOLO boxes of about four strides across (DFL mass on
+    bin 2). The YOLO class logits are spread (x1000 on the last class conv,
+    bias `gate_bias`) so that some tens of boxes a frame pass the 0.25 gate
+    with confidences well apart: random features alone give thousands of
+    nearly equal confidences, whose order float32 noise decides.
+
+    Random networks place the two sides' boxes independently, so a pair
+    rarely overlaps by the 0.7 IoU the match needs. So the 3D boxes, about
+    1.5 m wide and long, are made 40 m high with their bottoms 20 m below
+    the sensor: each projects across the whole image height at every range
+    of the raster. The YOLO boxes (stride 8, where the gated ones lie) reach
+    8 strides up and 15 down: many cover most of the image height, and none
+    spans all of it, since two boxes clipped to the same edges give fused
+    means of equal integers, which a one-ulp difference in a confidence
+    truncates a pixel apart. Such pairs overlap mostly by their x-intervals,
+    and a fair share pass 0.7."""
+    bump_heatmap_bias(fd.kfpn)
+    with torch.no_grad():
+        for i in range(3):
+            getattr(fd.kfpn, f"fpn{i}_dim")[2].bias += 1.5
+            getattr(fd.kfpn, f"fpn{i}_dim")[2].bias[0] += SFA_HEIGHT_BUMP
+            getattr(fd.kfpn, f"fpn{i}_z_coor")[2].bias += SFA_Z_BUMP
+            dfl = fd.yolo.model[22].cv2[i][2].bias.view(4, 16)
+            dfl[:, 2] += 4.0
+            for side, reach in YOLO_REACH.items():
+                dfl[side, reach] += YOLO_REACH_BUMP
+            fd.yolo.model[22].cv3[i][2].weight *= 1000.0
+            fd.yolo.model[22].cv3[i][2].bias.fill_(gate_bias)
+
+
+def fused_requests(n):
+    rng = np.random.default_rng(SEED + 4)
+    calib = KittiCalibration(None)
+    return [(make_scan(rng), rng.integers(0, 256, (*IMG_HW, 3)).astype(np.uint8), calib)
+            for _ in range(n)]
+
+
+def reply_rows(reply) -> np.ndarray:
+    """A fused reply as rows [x, y, w, h, class, source, score], sorted: the
+    order of the slots follows confidences that the two devices may rank
+    differently where they are nearly tied, so replies compare as sets."""
+    rows = np.concatenate([reply["boxes"].astype(np.float64),
+                           reply["classes"][:, None].astype(np.float64),
+                           reply["source"][:, None].astype(np.float64),
+                           reply["scores"][:, None].astype(np.float64)], axis=1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def replies_equal(a, b) -> bool:
+    ra, rb = reply_rows(a), reply_rows(b)
+    if ra.shape != rb.shape or not np.array_equal(ra[:, :6], rb[:, :6]):
+        return False
+    return bool(np.abs(ra[:, 6] - rb[:, 6]).max(initial=0.0) <= SCORE_TOL)
+
+
+def reply_difference(a, b):
+    """What differs between two fused replies (for the failure message)."""
+    ra, rb = reply_rows(a), reply_rows(b)
+    out = {"rows": [len(ra), len(rb)], "boxes_3d": [len(a["boxes_3d"]), len(b["boxes_3d"])]}
+    if ra.shape == rb.shape:
+        off = np.flatnonzero((ra[:, :6] != rb[:, :6]).any(1) | (np.abs(ra[:, 6] - rb[:, 6]) > SCORE_TOL))
+        out["differing"] = off[:5].tolist()
+        out["gpu"] = ra[off[:5]].tolist()
+        out["cpu"] = rb[off[:5]].tolist()
+    return out
+
+
+def _on_host(out):
+    """A network's output (KFPN: dict of heads; YOLO: list of (box, cls)
+    levels), copied to the host."""
+    if isinstance(out, dict):
+        return {k: v.cpu() for k, v in out.items()}
+    return [tuple(t.cpu() for t in level) for level in out]
+
+
+def _row(out, r: int):
+    if isinstance(out, dict):
+        return {k: v[r:r + 1] for k, v in out.items()}
+    return [tuple(t[r:r + 1] for t in level) for level in out]
+
+
+def _leaves(out):
+    return list(out.values()) if isinstance(out, dict) else [t for level in out for t in level]
+
+
+def record_networks(fd, calls):
+    """Forward hooks that append (input, output) of every call of fd's two
+    networks to calls["kfpn"] / calls["yolo"], on the host."""
+    def hook(name):
+        def fn(module, args, out):
+            calls[name].append((args[0].cpu(), _on_host(out)))
+        return fn
+    return [fd.kfpn.register_forward_hook(hook("kfpn")), fd.yolo.register_forward_hook(hook("yolo"))]
+
+
+def served_networks(calls, image: np.ndarray):
+    """The two networks' outputs for one served frame, found by its
+    letterboxed image among the recorded batches (the KFPN and YOLO calls
+    of one batch pair up in order)."""
+    want = torch.from_numpy(image).permute(2, 0, 1)
+    for (yin, yout), (_, kout) in zip(calls["yolo"], calls["kfpn"]):
+        for r in range(yin.shape[0]):
+            if torch.equal(yin[r], want):
+                return {"kfpn": _row(kout, r), "yolo": _row(yout, r)}
+    raise AssertionError("a served frame is missing from the recorded batches")
+
+
+def replay_networks(fd, given, errs):
+    """Forward hooks that make fd's networks return the `given` outputs in
+    place of their own, and append max |own - given| to errs."""
+    def hook(name):
+        def fn(module, args, own):
+            errs.append(max((a - b).abs().max().item()
+                            for a, b in zip(_leaves(own), _leaves(given[name]))))
+            return given[name]
+        return fn
+    return [fd.kfpn.register_forward_hook(hook("kfpn")), fd.yolo.register_forward_hook(hook("yolo"))]
+
+
+def phase_fused_serve(card):
+    gpu_fd = FusedDetector(imgsz=CANVAS, device=DEVICE, seed=SEED)
+    cpu_fd = FusedDetector(imgsz=CANVAS, device="cpu", seed=SEED)
+    reqs = fused_requests(16)
+    gate_bias = yolo_gate_bias(cpu_fd.yolo, reqs[0][1])
+    bump_fused_biases(gpu_fd, gate_bias)
+    bump_fused_biases(cpu_fd, gate_bias)
+
+    counted = [bev_raster_reduce, bev_cell_counts, fusion_loops.hard_nms_keep,
+               fusion_loops.soft_nms_gaussian, fusion_loops.greedy_match]
+    for fn in counted:  # count this path's launches only
+        fn.launches = 0
+    server = BatchingFusedServer(gpu_fd, max_batch=8, max_delay_ms=20.0)
+    replies = [None] * len(reqs)
+    calls = {"kfpn": [], "yolo": []}
+    hooks = []
+    t0 = time.perf_counter()
+    try:
+        server.warmup()
+        hooks = record_networks(gpu_fd, calls)
+        t_traffic = time.perf_counter()
+
+        def client(k):
+            futs = [(i, server.submit_fused(*reqs[i])) for i in range(k, len(reqs), 4)]
+            for i, fut in futs:
+                replies[i] = fut.result(timeout=300)
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a client thread did not finish")
+        traffic_s = time.perf_counter() - t_traffic
+    finally:
+        server.stop()
+        for h in hooks:
+            h.remove()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    stats = dict(server.stats)
+    warm = len(server.buckets())
+    if stats["served"] != len(reqs) or any(r is None for r in replies):
+        raise AssertionError(f"server answered {stats['served']} of {len(reqs)} requests")
+    for name in ("bev_raster_reduce", "hard_nms_keep", "soft_nms_gaussian", "greedy_match"):
+        if launches[name] != stats["batches"] + warm:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times for {stats['batches']} batches + {warm} warmups")
+
+    # Every served reply equals the CPU path's on the same request, given the
+    # served networks' outputs for that frame; the CPU networks' own outputs
+    # must lie within NET_TOL of those. Fused boxes are truncated means of two
+    # integer boxes weighted by their confidences: where the pair shares a
+    # coordinate, a difference of one float32 ulp in a confidence moves the
+    # mean to either side of that integer, so the path after the networks is
+    # held exact on equal inputs. `all_cpu` counts the replies that the CPU
+    # path also gives from its own networks.
+    per_reply, net_errs, all_cpu = [], [], 0
+    for i, (req, got) in enumerate(zip(reqs, replies)):
+        hooks = replay_networks(cpu_fd, served_networks(calls, letterbox(req[1], CANVAS)[0]), net_errs)
+        try:
+            want = cpu_fd.detect(*req)
+        finally:
+            for h in hooks:
+                h.remove()
+        if not replies_equal(got, want):
+            raise AssertionError(f"fused reply {i} differs between the GPU server and the CPU path: "
+                                 + json.dumps(reply_difference(got, want)))
+        all_cpu += replies_equal(got, cpu_fd.detect(*req))
+        per_reply.append(np.bincount(got["source"], minlength=3).tolist())
+    if not max(net_errs) <= NET_TOL:
+        raise AssertionError(f"the served networks' outputs differ from the CPU's by {max(net_errs)}")
+    sources = np.sum(per_reply, axis=0)
+    if not (sources[0] and sources[1] and sources[2] >= MIN_FUSED_PER_FRAME * len(reqs)):
+        raise AssertionError(f"vacuous fused replies: rows by source {sources.tolist()}")
+
+    # per-batch wall time at buckets 1 and 8, and the stage split at 8
+    prepared = []
+    for points, image, calib in reqs[:8]:
+        pts, valid = bev_ops.filter_and_pad_points(points, N)
+        img, r, pad = letterbox(image, CANVAS)
+        prepared.append((pts, valid, img, calib.V2C.astype(np.float32), calib.R0.astype(np.float32),
+                         calib.P2.astype(np.float32), np.float32(IMG_HW), np.float32(r), np.float32(pad)))
+    batch8 = [np.stack(a) for a in zip(*prepared)]
+    lat = {b: host_ms(lambda: gpu_fd.run_batch(*[a[:b] for a in batch8])) for b in (1, 8)}
+    dev = DEVICE
+    pts, valid, images, V2C, R0, P2, hw, scale, pad = (torch.from_numpy(a).to(dev) for a in batch8)
+    kfpn, yolo = gpu_fd.kfpn, gpu_fd.yolo
+    with torch.inference_mode():
+        bev = bev_ops.points_to_bev_nchw(pts, valid)
+        heads = _heads_nhwc(kfpn, bev)
+        _, boxes_bev, boxes_real, mask = _decode_heads(heads, 50, 0.2)
+        sfa_scores = boxes_bev[..., 1]
+        levels = forward_levels(yolo, images)
+        yb_all, ys_all = decode_predictions(levels)
+        yb, ys, yc, yv = select_detections(yb_all, ys_all, 0.25, 0.45, 64)
+        ybox = _unletterbox_xywh(yb, scale, pad, hw)
+
+        def project():
+            return project_boxes_to_image(boxes_real, sfa_scores, mask, V2C, R0, P2,
+                                          img_h=hw[:, 0], img_w=hw[:, 1], conf_gate=0.2)
+
+        sfa2d, sfa_valid = project()
+        sfa_cls = boxes_real[..., 0].to(torch.int32)
+        fuse_kw = dict(mode="bayesian", confidence_threshold=0.25, fusion_iou_threshold=0.7,
+                       nms_threshold=0.5, use_gaussian_nms=True, gaussian_sigma=0.5)
+        stages = {
+            "raster_ms": cuda_ms(lambda: bev_ops.points_to_bev_nchw(pts, valid)),
+            "kfpn_ms": cuda_ms(lambda: kfpn(bev)),
+            "decode_post_ms": cuda_ms(lambda: _decode_heads(heads, 50, 0.2)),
+            "projection_ms": cuda_ms(project),
+            "yolo_ms": cuda_ms(lambda: yolo(images.permute(0, 3, 1, 2))),
+            "yolo_decode_ms": cuda_ms(lambda: decode_predictions(levels)),
+            "select_detections_ms": cuda_ms(lambda: select_detections(yb_all, ys_all, 0.25, 0.45, 64)),
+            "unletterbox_ms": cuda_ms(lambda: _unletterbox_xywh(yb, scale, pad, hw)),
+            "fusion_soft_nms_ms": cuda_ms(lambda: _fuse_one(ybox, ys, yc, yv, sfa2d, sfa_scores,
+                                                            sfa_cls, sfa_valid, **fuse_kw)),
+        }
+    emit({"phase": "fused_serve", "requests": len(reqs), "threads": 4, "canvas": list(CANVAS),
+          "image": list(IMG_HW), "stats": stats, "warmup_batches": warm, "launches": launches,
+          "yolo_gate_bias": gate_bias, "rows_by_source": sources.tolist(),
+          "replies_equal_to_cpu_given_served_networks": len(reqs),
+          "replies_equal_to_all_cpu_path": all_cpu, "network_max_abs_err": max(net_errs),
+          "rows_by_source_per_reply": per_reply,
+          "traffic_seconds": traffic_s, "serve_seconds_with_warmup": time.perf_counter() - t0,
+          "batch_ms_bucket1": lat[1], "batch_ms_bucket8": lat[8],
+          "frames_per_s_bucket8": 8 / (lat[8] / 1e3), "stages_bucket8": stages,
+          "card": card["nvidia_smi"]})
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build(card)
     counts_rec, raster_rec = phase_kernel(card)
+    loop_recs = phase_fusion_kernels(card)
     pts, valid = phase_raster(card)
     phase_model(card, pts, valid)
-    scans, raster_rec["launches"], served_count_launches = phase_serve(card)
-    raster_rec["path"] = "BatchingDetectorServer: 16 requests, warmups included"
+    phase_yolo(card)
+    scans, lidar_raster_launches, served_count_launches = phase_serve(card)
     counts_rec["launches"] = phase_counts(card, scans)
     counts_rec["path"] = "count map of the 16 served scans: cell_indices_and_keys -> bev_cell_counts"
-    counts_rec["served_path_launches"] = served_count_launches
+    fused = phase_fused_serve(card)
+    fused_path = "BatchingFusedServer: 16 requests, warmups included"
+    raster_rec["launches"] = fused["bev_raster_reduce"]
+    raster_rec["path"] = fused_path
+    for rec in loop_recs:
+        rec["launches"] = fused[rec["name"]]
+        rec["path"] = fused_path
+    counts_rec["launches_by_path"] = {"lidar_serve": served_count_launches,
+                                      "fused_serve": fused["bev_cell_counts"]}
+    raster_rec["launches_by_path"] = {"lidar_serve": lidar_raster_launches,
+                                      "fused_serve": fused["bev_raster_reduce"]}
     print(card["nvidia_smi"], flush=True)
-    emit({"kernels": [counts_rec, raster_rec]})
+    emit({"kernels": [counts_rec, raster_rec, *loop_recs]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

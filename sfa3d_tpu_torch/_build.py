@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -118,3 +119,12 @@ def load_library(name: str, signatures: Dict[str, Tuple[object, Sequence[object]
                 f.argtypes = list(argtypes)
             _loaded[name] = lib
         return lib
+
+
+def finish_launch(fn, name: str, err: int) -> None:
+    """After a kernel wrapper's C call: raise on a CUDA error (the launch
+    never ran; there is no fallback), else add one to `fn.launches`."""
+    if err != 0:
+        raise RuntimeError(f"{name} CUDA launch failed: cudaError {err}")
+    with _count_lock:
+        fn.launches += 1

@@ -1,7 +1,7 @@
-"""High-level detector facade of the port, the counterpart of
+"""High-level detector facades of the port, the counterpart of
 `sfa3d_tpu/detector.py`.
 
-    from sfa3d_tpu_torch import Detector
+    from sfa3d_tpu_torch import Detector, FusedDetector
 
     det = Detector()                                   # random init, on cuda
     det = Detector(checkpoint="Model_fpn_resnet_18_epoch_300.pth")
@@ -10,8 +10,10 @@
     boxes = det.detect(points)        # (N, 4) raw velodyne points
     boxes = det.detect_file("000001.bin")
 
-Returns a list of dicts {'class_id', 'class_name', 'score', 'x', 'y', 'z',
-'h', 'w', 'l', 'yaw'} in the metric velodyne frame.
+`Detector` returns a list of dicts {'class_id', 'class_name', 'score', 'x',
+'y', 'z', 'h', 'w', 'l', 'yaw'} in the metric velodyne frame.
+`FusedDetector` runs the camera + LiDAR fusion program on a scan, an RGB
+image and its calibration.
 """
 
 from __future__ import annotations
@@ -113,3 +115,107 @@ class Detector:
     def detect_file(self, velodyne_bin: str) -> List[Dict]:
         points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
         return self.detect(points)
+
+
+def fused_reply(out: Dict[str, np.ndarray], i: int) -> Dict[str, np.ndarray]:
+    """Host output of the fused program -> frame i's reply: 'boxes' (N, 4)
+    int xywh image pixels, 'scores', 'classes', 'source' (0=yolo,
+    1=sfa3d, 2=fused), 'boxes_3d' (M, 8) metric rows."""
+    v = out["valid"][i]
+    m3 = out["mask_3d"][i]
+    return {
+        "boxes": out["boxes"][i][v].astype(int),
+        "scores": out["scores"][i][v],
+        "classes": out["classes"][i][v],
+        "source": out["source"][i][v],
+        "boxes_3d": out["boxes_real"][i][m3],
+    }
+
+
+class FusedDetector:
+    """The camera + LiDAR fusion path behind one call (SFA3D + YOLOv8 +
+    fusion + NMS, `fusion/batch.py`), on one device.
+
+        fd = FusedDetector()                               # random weights, cuda
+        fd = FusedDetector(checkpoint="....pth",           # SFA3D weights
+                           yolo_checkpoint="yolov8n.pt")   # ultralytics-layout .pt
+        fd = FusedDetector(device="cpu", imgsz=(224, 640)) # CPU, KITTI canvas
+        out = fd.detect(points, image_rgb, calib)
+
+    Returns {'boxes' (N, 4) int xywh image pixels, 'scores', 'classes',
+    'source' (0=yolo, 1=sfa3d, 2=fused), 'boxes_3d' (M, 8) metric rows}.
+
+    `device` defaults to cuda and raises without a GPU. With no checkpoint
+    the KFPN weights come from `torch.Generator().manual_seed(seed)` and
+    the YOLO weights from `manual_seed(seed + 1)`. A YOLO checkpoint sizes
+    the model from its own shapes; `yolo_scale` only picks the scale of
+    random weights ('n' by default) and must agree with a checkpoint.
+    `imgsz` is the letterbox canvas: an int (square) or (h, w).
+    """
+
+    def __init__(
+        self,
+        arch: str = "fpn_resnet_18",
+        checkpoint: Optional[str] = None,
+        yolo_scale: Optional[str] = None,
+        yolo_checkpoint: Optional[str] = None,
+        mode: str = "bayesian",
+        use_gaussian_nms: bool = True,
+        K: int = 50,
+        max_yolo: int = 64,  # == fusion.DEFAULT_MAX_YOLO
+        peak_thresh: float = 0.2,
+        confidence_threshold: float = 0.25,
+        fusion_iou_threshold: float = 0.7,
+        gaussian_sigma: float = 0.5,
+        imgsz=640,
+        dtype: str = "float32",
+        device: Device = None,
+        seed: int = 0,
+    ):
+        from sfa3d_tpu_torch.fusion.batch import build_fused_pipeline
+        from sfa3d_tpu_torch.models.yolov8 import YOLOv8, load_yolo_checkpoint
+
+        base = Detector(arch=arch, checkpoint=checkpoint, K=K, peak_thresh=peak_thresh,
+                        dtype=dtype, device=device, seed=seed)
+        self.device = base.device
+        self.kfpn = base.model
+        self.imgsz = imgsz
+        if yolo_checkpoint:
+            yolo = load_yolo_checkpoint(yolo_checkpoint)
+            if yolo_scale is not None and yolo_scale != yolo.scale:
+                raise ValueError(
+                    f"{yolo_checkpoint} holds a YOLOv8{yolo.scale}, not the yolo_scale={yolo_scale!r} asked for"
+                )
+        else:
+            yolo = YOLOv8(scale=yolo_scale or "n").init_weights(torch.Generator().manual_seed(seed + 1))
+        self.yolo = yolo.to(self.device).eval()
+        self._run = build_fused_pipeline(
+            self.kfpn, self.yolo, K=K, max_yolo=max_yolo, mode=mode,
+            use_gaussian_nms=use_gaussian_nms, peak_thresh=peak_thresh,
+            confidence_threshold=confidence_threshold,
+            fusion_iou_threshold=fusion_iou_threshold,
+            gaussian_sigma=gaussian_sigma, device=self.device,
+        )
+
+    def run_batch(self, pts, valid, img, V2C, R0, P2, hw, scale, pad) -> Dict[str, np.ndarray]:
+        """One batch of padded scans, letterboxed images and calibrations
+        through the fused program -> host dict of numpy arrays."""
+        out = self._run(pts, valid, img, V2C, R0, P2, hw, scale, pad)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def detect(self, points: np.ndarray, image_rgb: np.ndarray, calib) -> Dict[str, np.ndarray]:
+        """One frame: (N, 4) raw velodyne scan + HxWx3 RGB image + calibration."""
+        from sfa3d_tpu_torch.models.yolov8 import letterbox
+        from sfa3d_tpu_torch.ops.bev import filter_and_pad_points
+
+        pts, valid = filter_and_pad_points(points, max_points=cnf.MAX_POINTS_FILTERED)
+        img, r, (pad_w, pad_h) = letterbox(image_rgb, self.imgsz)
+        h, w = image_rgb.shape[:2]
+        out = self.run_batch(
+            pts[None], valid[None], img[None],
+            np.asarray(calib.V2C, np.float32)[None],
+            np.asarray(calib.R0, np.float32)[None],
+            np.asarray(calib.P2, np.float32)[None],
+            np.float32([[h, w]]), np.float32([r]), np.float32([[pad_w, pad_h]]),
+        )
+        return fused_reply(out, 0)

@@ -1,10 +1,12 @@
 """Weight bridge: JAX package variables and reference `.pth` files -> the
-port's KFPN state_dict.
+port's KFPN and YOLOv8 state_dicts.
 
 `state_dict_from_jax` is the port's own copy of the mapping in
 `sfa3d_tpu/models/port.py:217` (`export_kfpn_state_dict`): flax
 `{"params", "batch_stats"}` trees, as numpy, become the reference
 PoseResNet state_dict that `KFPN.load_state_dict(strict=True)` takes.
+`yolo_state_dict_from_jax` does the same for YOLOv8 in the ultralytics
+layout.
 
 Layout: flax conv kernel (kH, kW, I, O) -> torch weight (O, I, kH, kW);
 BatchNorm scale/bias -> weight/bias; batch_stats mean/var ->
@@ -74,6 +76,67 @@ def state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "
             sd[f"{t}.0.bias"] = _t(node["conv1"]["bias"])
             sd[f"{t}.2.weight"] = _kernel(node["conv2"]["kernel"])
             sd[f"{t}.2.bias"] = _t(node["conv2"]["bias"])
+    return sd
+
+
+def yolo_state_dict_from_jax(variables: Mapping[str, Any], scale: str = "n",
+                             num_classes: int = 80) -> "OrderedDict[str, torch.Tensor]":
+    """JAX YOLOv8 variables (numpy leaves) -> the ultralytics-layout
+    state_dict (`model.N.*`) that the port's `YOLOv8.load_state_dict(strict=
+    True)` takes: the port's own copy of the mapping in
+    `sfa3d_tpu/models/yolov8.py:486` (`export_ultralytics_state_dict`), with
+    the same keys in the same order, BatchNorm `num_batches_tracked` and the
+    fixed DFL kernel `model.22.dfl.conv.weight` included."""
+    from sfa3d_tpu_torch.models.yolov8 import (
+        _UL_BACKBONE, _UL_NECK, HEAD_INDEX, REG_MAX, scale_depths,
+    )
+
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+
+    def get(tree, path):
+        for p in path:
+            tree = tree[p]
+        return tree
+
+    def conv_bn(prefix, path):
+        sd[f"{prefix}.conv.weight"] = _kernel(get(params, path + ("conv", "kernel")))
+        sd[f"{prefix}.bn.weight"] = _t(get(params, path + ("bn", "scale")))
+        sd[f"{prefix}.bn.bias"] = _t(get(params, path + ("bn", "bias")))
+        sd[f"{prefix}.bn.running_mean"] = _t(get(stats, path + ("bn", "mean")))
+        sd[f"{prefix}.bn.running_var"] = _t(get(stats, path + ("bn", "var")))
+        sd[f"{prefix}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    def plain_conv(prefix, path):
+        sd[f"{prefix}.weight"] = _kernel(get(params, path + ("kernel",)))
+        sd[f"{prefix}.bias"] = _t(get(params, path + ("bias",)))
+
+    d1, d2, d3, d4 = scale_depths(scale)
+    c2f_depth = {"c2f1": d1, "c2f2": d2, "c2f3": d3, "c2f4": d4,
+                 "n_c2f1": d4, "n_c2f2": d4, "n_c2f3": d4, "n_c2f4": d4}
+    for idx, name in {**_UL_BACKBONE, **_UL_NECK}.items():
+        prefix = f"model.{idx}"
+        if name in c2f_depth:
+            conv_bn(f"{prefix}.cv1", (name, "cv1"))
+            conv_bn(f"{prefix}.cv2", (name, "cv2"))
+            for i in range(c2f_depth[name]):
+                conv_bn(f"{prefix}.m.{i}.cv1", (name, f"m{i}", "cv1"))
+                conv_bn(f"{prefix}.m.{i}.cv2", (name, f"m{i}", "cv2"))
+        elif name == "sppf":
+            conv_bn(f"{prefix}.cv1", ("sppf", "cv1"))
+            conv_bn(f"{prefix}.cv2", ("sppf", "cv2"))
+        else:
+            conv_bn(prefix, (name,))
+
+    det = f"model.{HEAD_INDEX}"
+    for i in range(3):
+        for b in range(2):
+            conv_bn(f"{det}.cv2.{i}.{b}", ("detect", f"cv2_{i}_{b}"))
+            conv_bn(f"{det}.cv3.{i}.{b}", ("detect", f"cv3_{i}_{b}"))
+        plain_conv(f"{det}.cv2.{i}.2", ("detect", f"cv2_{i}_2"))
+        plain_conv(f"{det}.cv3.{i}.2", ("detect", f"cv3_{i}_2"))
+    sd[f"{det}.dfl.conv.weight"] = torch.arange(REG_MAX, dtype=torch.float32).reshape(1, REG_MAX, 1, 1)
     return sd
 
 

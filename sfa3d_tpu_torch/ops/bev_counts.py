@@ -32,13 +32,12 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from sfa3d_tpu_torch._build import load_library
+from sfa3d_tpu_torch._build import finish_launch, load_library
 
 H = 608
 W = 608
@@ -59,7 +58,6 @@ _SIGNATURES = {
         (_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32, _c_i32, _c_ptr),
     ),
 }
-_count_lock = threading.Lock()
 _smem_limits = {}  # device index -> bytes of shared memory a block may use
 
 
@@ -138,13 +136,6 @@ def shared_memory_limit(device) -> int:
     return _smem_limit(load_library("bev_counts", _SIGNATURES), dev)
 
 
-def _finish(fn, name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} CUDA launch failed: cudaError {err}")
-    with _count_lock:
-        fn.launches += 1
-
-
 def bev_cell_counts_plain(row: torch.Tensor, col: torch.Tensor,
                           H: int = H, W: int = W) -> torch.Tensor:
     """Plain PyTorch version: (B, N) int32 cell indices (-1 = invalid) ->
@@ -178,7 +169,7 @@ def bev_cell_counts(row: torch.Tensor, col: torch.Tensor,
         row.data_ptr(), col.data_ptr(), out.data_ptr(), b, n, H, W, tile_rows, n_tiles,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _finish(bev_cell_counts, "bev_cell_counts", err)
+    finish_launch(bev_cell_counts, "bev_cell_counts", err)
     return out
 
 
@@ -231,7 +222,7 @@ def bev_raster_reduce(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
         tile_rows, n_tiles, _INV_4095, _INV_8191, _INV_LOG64,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    _finish(bev_raster_reduce, "bev_raster_reduce", err)
+    finish_launch(bev_raster_reduce, "bev_raster_reduce", err)
     return out
 
 

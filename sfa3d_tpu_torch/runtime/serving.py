@@ -1,7 +1,7 @@
 """Batched serving runtime of the port, the counterpart of
 `sfa3d_tpu/runtime/serving.py`.
 
-Concurrent callers submit single scans; the server coalesces them into
+Concurrent callers submit single frames; the server coalesces them into
 device batches, trading up to `max_delay_ms` of latency for a fuller
 batch. Batches run at power-of-two bucket sizes capped at `max_batch`;
 short batches are zero-padded and the padding frames cost callers nothing.
@@ -11,9 +11,14 @@ short batches are zero-padded and the padding frames cost callers nothing.
     dets = fut.result()                  # list of detection dicts
     server.stop()
 
+    server = BatchingFusedServer(FusedDetector(imgsz=(224, 640)), max_batch=8)
+    fut = server.submit_fused(points, image_rgb, calib)
+    reply = fut.result()                 # FusedDetector.detect's dict
+
 Threading model: ONE dispatch thread makes every device call; request
-threads only filter and pad their scan (numpy, on the caller's thread),
-enqueue it and wait on the future.
+threads only prepare their frame on the host (scan filter and pad, and the
+letterbox for the fused server, on the caller's thread), enqueue it and
+wait on the future.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Dict
 import numpy as np
 
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.detector import format_detections
+from sfa3d_tpu_torch.detector import format_detections, fused_reply
 from sfa3d_tpu_torch.ops.bev import filter_and_pad_points
 
 
@@ -96,9 +101,12 @@ class BatchingDetectorServer:
         serialize with dispatch on the device lock."""
         for b in self.buckets():
             with self._device_lock:
-                self.det.detect_batch(
-                    np.zeros((b, self._P, 4), np.float32), np.zeros((b, self._P), bool)
-                )
+                self._warm_bucket(b)
+
+    def _warm_bucket(self, bucket: int):
+        self.det.detect_batch(
+            np.zeros((bucket, self._P, 4), np.float32), np.zeros((bucket, self._P), bool)
+        )
 
     def stop(self, timeout: float = 60.0):
         """Drain in-flight work, then stop the dispatch thread. Requests
@@ -177,6 +185,88 @@ class BatchingDetectorServer:
         out = self.det.detect_batch(pts, valid)
         for i, (_, _, fut) in enumerate(batch):
             fut.set_result(format_detections(out, i))
+        self.stats["served"] += n
+        self.stats["batches"] += 1
+        self.stats["padded"] += bucket - n
+
+
+class BatchingFusedServer(BatchingDetectorServer):
+    """Dynamic batcher over the camera + LiDAR fusion program
+    (`FusedDetector`, `fusion/batch.py`).
+
+    submit_fused(points, image_rgb, calib) -> Future of the
+    FusedDetector.detect reply. The scan filter and the letterbox run on the
+    caller's thread; only the batched program runs on the dispatch thread.
+    """
+
+    def __init__(self, fused_detector, max_batch: int = 8, max_delay_ms: float = 5.0):
+        self.fd = fused_detector
+        super().__init__(detector=fused_detector, max_batch=max_batch,
+                         max_delay_ms=max_delay_ms)
+
+    def submit(self, points):
+        raise TypeError("BatchingFusedServer needs submit_fused(points, image, calib)")
+
+    def submit_file(self, velodyne_bin):
+        raise TypeError("BatchingFusedServer needs submit_fused_file(path, image, calib)")
+
+    def submit_fused(self, points: np.ndarray, image_rgb: np.ndarray, calib) -> Future:
+        """(N, 4) raw scan + 0-255 RGB image (the letterbox normalizes) +
+        calibration -> Future of the FusedDetector.detect reply."""
+        pts, valid = filter_and_pad_points(points, max_points=self._P)
+        return self._enqueue_fused(pts, valid, image_rgb, calib)
+
+    def submit_fused_file(self, velodyne_bin: str, image_rgb: np.ndarray, calib) -> Future:
+        """Fused request from a `.bin` scan path (read with numpy)."""
+        points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
+        return self.submit_fused(points, image_rgb, calib)
+
+    def _enqueue_fused(self, pts, valid, image_rgb, calib) -> Future:
+        from sfa3d_tpu_torch.models.yolov8 import letterbox
+
+        h, w = image_rgb.shape[:2]
+        img, r, (pad_w, pad_h) = letterbox(image_rgb, self.fd.imgsz)
+        req = dict(
+            pts=pts, valid=valid, img=img,
+            V2C=np.asarray(calib.V2C, np.float32),
+            R0=np.asarray(calib.R0, np.float32),
+            P2=np.asarray(calib.P2, np.float32),
+            hw=np.float32([h, w]), scale=np.float32(r),
+            pad=np.float32([pad_w, pad_h]),
+        )
+        return self._enqueue(req, None)
+
+    def _warm_bucket(self, bucket: int):
+        # the detector's own canvas (h, w); an int imgsz is square
+        imgsz = self.fd.imgsz
+        ch, cw = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz
+        self.fd.run_batch(
+            np.zeros((bucket, self._P, 4), np.float32),
+            np.zeros((bucket, self._P), bool),
+            np.zeros((bucket, ch, cw, 3), np.float32),
+            np.zeros((bucket, 3, 4), np.float32),
+            np.zeros((bucket, 3, 3), np.float32),
+            np.zeros((bucket, 3, 4), np.float32),
+            np.ones((bucket, 2), np.float32),
+            np.ones((bucket,), np.float32),
+            np.zeros((bucket, 2), np.float32),
+        )
+
+    def _run_batch(self, batch):
+        n = len(batch)
+        bucket = min(_next_pow2(n), self.max_batch)
+        reqs = [req for req, _, _ in batch]
+
+        def stack(key, fill=None):
+            pad = np.zeros_like(reqs[0][key]) if fill is None else fill
+            return np.stack([r[key] for r in reqs] + [pad] * (bucket - n))
+
+        out = self.fd.run_batch(
+            stack("pts"), stack("valid"), stack("img"), stack("V2C"), stack("R0"),
+            stack("P2"), stack("hw"), stack("scale", np.float32(1.0)), stack("pad"),
+        )
+        for i, (_, _, fut) in enumerate(batch):
+            fut.set_result(fused_reply(out, i))
         self.stats["served"] += n
         self.stats["batches"] += 1
         self.stats["padded"] += bucket - n

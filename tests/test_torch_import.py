@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: it imports with JAX and the JAX package
-absent, its sources import neither, and its entry points never fall back
-to the CPU on their own."""
+"""The PyTorch port stands alone: it imports with JAX, the JAX package, cv2
+and ultralytics absent, its sources import none of them, and its entry
+points never fall back to the CPU on their own."""
 
 import pkgutil
 import re
@@ -15,7 +15,7 @@ import sfa3d_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "sfa3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu)\b", re.MULTILINE)
+FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu|cv2|ultralytics)\b", re.MULTILINE)
 
 
 def _port_modules():
@@ -26,15 +26,19 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert "sfa3d_tpu_torch.ops.bev_counts" in modules
+    for name in ("ops.bev_counts", "ops.fusion_loops", "models.yolov8", "fusion.batch",
+                 "fusion.pipeline", "geometry.calibration", "runtime.serving"):
+        assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['sfa3d_tpu'] = None\n"
+        "for banned in ('jax', 'sfa3d_tpu', 'cv2', 'ultralytics'):\n"
+        "    sys.modules[banned] = None\n"
         "import importlib\n"
         f"for name in {modules!r} + ['sfa3d_tpu_torch', 'chip_smoke']:\n"
         "    importlib.import_module(name)\n"
-        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.'))]\n"
+        "import sfa3d_tpu_torch.fusion as f\n"
+        "assert f.build_fused_pipeline and f.hard_nms and f.fuse_frame\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.', 'cv2.'))]\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -72,6 +76,26 @@ def test_detect_frames_raises_without_gpu(monkeypatch):
     model = create_model("fpn_resnet_18").eval()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         detect_frames(model, np.zeros((1, 8, 4), np.float32), np.zeros((1, 8), bool))
+
+
+def test_fused_entry_points_raise_without_gpu(monkeypatch):
+    from sfa3d_tpu_torch.detector import FusedDetector
+    from sfa3d_tpu_torch.fusion.batch import build_fused_pipeline
+    from sfa3d_tpu_torch.fusion.pipeline import fuse_frame
+    from sfa3d_tpu_torch.geometry.calibration import KittiCalibration
+    from sfa3d_tpu_torch.models import create_model
+    from sfa3d_tpu_torch.models.yolov8 import YOLOv8, YOLOv8Detector
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedDetector()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        YOLOv8Detector()
+    run = build_fused_pipeline(create_model("fpn_resnet_18").eval(), YOLOv8().eval())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(*([None] * 9))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fuse_frame([], [], [], [[0] * 8], [0.0], [False], KittiCalibration(None), (375, 1242))
 
 
 def test_count_kernel_has_no_silent_fallback():
@@ -132,10 +156,64 @@ def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
     assert fn.launches == before
 
 
+def _fake_fusion_lib(refuse):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(hard_nms_keep_cuda=refuse, soft_nms_gaussian_cuda=refuse,
+                           greedy_match_cuda=refuse)
+
+
+@pytest.mark.parametrize("entry", ["hard_nms_keep", "soft_nms_gaussian", "greedy_match"])
+def test_fusion_loop_failed_launch_raises_never_falls_back(monkeypatch, entry):
+    """The same contract for the three loop kernels: a CUDA-typed call whose
+    launch returns a CUDA error raises, runs no plain version and counts no
+    launch."""
+    from types import SimpleNamespace
+
+    from sfa3d_tpu_torch.ops import fusion_loops
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(fusion_loops, "load_library",
+                        lambda name, signatures: _fake_fusion_lib(lambda *a: 98))
+    monkeypatch.setattr(fusion_loops, f"{entry}_plain", plain)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+    cuda = lambda t: torch.Tensor._make_subclass(_CudaTyped, t)  # noqa: E731
+    boxes, valid = cuda(torch.zeros((2, 8, 4))), cuda(torch.ones((2, 8), dtype=torch.bool))
+    args = {"hard_nms_keep": (boxes, valid, 0.5),
+            "soft_nms_gaussian": (boxes, cuda(torch.zeros((2, 8))), valid),
+            "greedy_match": (boxes, valid, boxes, valid, 0.5)}[entry]
+    fn = getattr(fusion_loops, entry)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
+        fn(*args)
+    assert fn.launches == before
+
+
+def test_fusion_loop_wrappers_check_their_inputs():
+    from sfa3d_tpu_torch.ops import fusion_loops
+
+    boxes, valid = torch.zeros((1, 8, 4), device="meta"), torch.ones((1, 8), dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fusion_loops.hard_nms_keep(boxes, valid, 0.5)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fusion_loops.greedy_match(boxes, valid, boxes, valid, 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        fusion_loops.hard_nms_keep(torch.zeros((1, 8, 4), dtype=torch.float64), torch.ones((1, 8), dtype=torch.bool), 0.5)
+    with pytest.raises(ValueError, match=r"\(B, K, 4\)"):
+        fusion_loops.soft_nms_gaussian(torch.zeros((8, 4)), torch.zeros(8), torch.ones(8, dtype=torch.bool))
+    big = torch.Tensor._make_subclass(_CudaTyped, torch.zeros((1, 1025, 4)))
+    big_valid = torch.Tensor._make_subclass(_CudaTyped, torch.ones((1, 1025), dtype=torch.bool))
+    with pytest.raises(ValueError, match="at most 1024 slots"):
+        fusion_loops.hard_nms_keep(big, big_valid, 0.5)
+
+
 def test_kernel_sources_ship_with_the_package():
     from sfa3d_tpu_torch import _build
 
     assert (_build.CSRC_DIR / "bev_counts.cu").is_file()
+    assert (_build.CSRC_DIR / "fusion_loops.cu").is_file()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     lib = _build.library_path("bev_counts")
     assert lib.parent == ROOT / "build" / "kernels"
