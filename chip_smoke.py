@@ -31,12 +31,17 @@ Phases, each printing one JSON line:
           they give equals the served raster's channel 2
   fusion_kernels  the three loop kernels of csrc/fusion_loops.cu
           (hard_nms_keep, soft_nms_gaussian, greedy_match) vs their plain
-          PyTorch versions on the card: random boxes, all-invalid frames,
-          equal scores (ties), K = 256 class-offset candidates and the
-          served shapes (8 x 256 YOLO candidates; 8 x 114 fused slots;
-          8 x 64 YOLO x 50 SFA). Masks and indices exact, soft-NMS scores
-          within 1e-6 relative (expf vs PyTorch's exp: an ulp or two, times
-          up to 114 decays); event, device and plain ms at the served shape
+          PyTorch versions on the card, bit for bit (masks, indices and
+          soft-NMS scores): random boxes, all-invalid frames, equal scores
+          (ties), duplicates, class-offset candidates, K = 1, 33 and 1024
+          (the hard-NMS words at their edges), the served shapes (8 x 256
+          YOLO candidates; 8 x 114 fused slots; 8 x 64 YOLO x 50 SFA), and
+          soft-NMS on either side of soft_nms_matrix_slots (the decay-matrix
+          kernel at the limit, the block kernel one above it and at 1024),
+          zero and signed scores (-0 ties +0; negative scores order), a
+          chain of boxes that each overlap the next (every other one kept).
+          Event, device, per-step and plain ms at the served shape, device
+          ms of both soft-NMS designs at the switch and at the served shape
   yolo    YOLOv8n heads at 1 x 224 x 640 on the GPU vs the CPU, per level
   fused_serve  BatchingFusedServer(FusedDetector(imgsz=(224, 640))),
           max_batch 8, answers 16 requests (scan + seeded 375 x 1242 uint8
@@ -108,7 +113,6 @@ DENSITY_TOL = 1.2e-7  # one float32 ulp of log between two libms, scaled
 KERNEL_NAME = r"bev_tile_kernel"
 CANVAS = (224, 640)  # the ultralytics predict canvas of a 375 x 1242 KITTI frame
 IMG_HW = (375, 1242)
-SOFT_NMS_RTOL = 1e-6  # expf vs PyTorch's exp: an ulp or two, compounded over the decays
 SCORE_TOL = 1e-4  # fused scores GPU vs CPU: conv sums in another order
 NET_TOL = 1e-3  # KFPN heads and YOLO levels GPU vs CPU (the model phase's tolerance)
 IOU_FLOPS = 22  # float operations of one IoU and its comparison
@@ -571,11 +575,14 @@ def phase_counts(card, scans):
 # ---------------------------------------------------------------------------
 
 LOOP_B = 8  # frames per batch in the fusion_kernels phase: the served bucket
-LOOP_ENTRIES = {  # entry -> (kernel symbol, TPU-side function it replaces)
-    "hard_nms_keep": ("hard_nms_keep_kernel", "sfa3d_tpu/fusion/nms.py:33"),
-    "soft_nms_gaussian": ("soft_nms_gaussian_kernel", "sfa3d_tpu/fusion/nms.py:54"),
-    "greedy_match": ("greedy_match_kernel", "sfa3d_tpu/fusion/fuse.py:64"),
+LOOP_ENTRIES = {  # entry -> (design at the served shape, its kernel symbol, TPU-side function)
+    "hard_nms_keep": ("suppression bitmask, one-warp scan", "hard_nms_keep_kernel",
+                      "sfa3d_tpu/fusion/nms.py:33"),
+    "soft_nms_gaussian": ("decay matrix, one-warp argmax chain", "soft_nms_matrix_kernel",
+                          "sfa3d_tpu/fusion/nms.py:54"),
+    "greedy_match": ("block argmax per step", "greedy_match_kernel", "sfa3d_tpu/fusion/fuse.py:64"),
 }
+SOFT_BLOCK_KERNEL = "soft_nms_block_kernel"  # soft-NMS above soft_nms_matrix_slots
 NO_LIBRARY = ("none: no single PyTorch call computes it (torchvision is absent, and its "
               "NMS keeps other rules)")
 
@@ -590,14 +597,22 @@ def loop_boxes(rng, b, k, grid=False):
     return np.concatenate([xy, rng.uniform(4, 120, (b, k, 2)).astype(np.float32)], -1)
 
 
-def loop_inputs(rng):
+def loop_inputs(rng, matrix_slots):
     """The fusion_kernels phase's inputs: {name: (boxes, scores, valid)} for
     the two NMS entries and {name: (yolo, yolo_valid, sfa, sfa_valid)} for
     the match. The served shapes: 256 YOLO candidates (hard NMS), 114
-    fused slots (soft-NMS), 64 YOLO x 50 SFA boxes (the match)."""
+    fused slots (soft-NMS), 64 YOLO x 50 SFA boxes (the match). K = 1, 33
+    and 1024 test the hard-NMS words at their edges; K = matrix_slots and
+    matrix_slots + 1 run the two soft-NMS designs on either side of the
+    choice (K = 1024 runs the block design too)."""
     def scored(k, grid=False):
         return (loop_boxes(rng, LOOP_B, k, grid), rng.uniform(0, 1, (LOOP_B, k)).astype(np.float32),
                 rng.random((LOOP_B, k)) < 0.8)
+
+    def class_offset(k):  # the YOLO NMS: class-offset boxes, scores sorted
+        bx, sc, v = scored(k, grid=True)
+        bx[..., :2] += rng.integers(0, 80, (LOOP_B, k, 1)).astype(np.float32) * 4096.0
+        return bx, np.sort(sc, 1)[:, ::-1].copy(), v
 
     nms_cases = {"random": scored(114)}
     bx, sc, v = scored(114)
@@ -609,9 +624,7 @@ def loop_inputs(rng):
     bx, sc, v = scored(114, grid=True)
     bx[:, 1::2] = bx[:, ::2]  # duplicates: IoU exactly 1
     nms_cases["duplicates"] = (bx, sc, v)
-    bx, sc, v = scored(256, grid=True)  # the YOLO NMS: class-offset boxes, scores sorted
-    bx[..., :2] += rng.integers(0, 80, (LOOP_B, 256, 1)).astype(np.float32) * 4096.0
-    nms_cases["class_offset_256"] = (bx, np.sort(sc, 1)[:, ::-1].copy(), v)
+    nms_cases["class_offset_256"] = class_offset(256)
 
     def matched(ky, ks, grid=False):
         yolo = loop_boxes(rng, LOOP_B, ky, grid)
@@ -627,6 +640,23 @@ def loop_inputs(rng):
     sf[:, 1::2] = sf[:, ::2]  # tied IoUs: the lowest index wins
     match_cases["ties"] = (y, yv, sf, sv)
     match_cases["wide_256x256"] = matched(256, 256, grid=True)
+    # drawn last, so that the inputs above stay as they were before these
+    nms_cases["k1"] = scored(1)
+    nms_cases["k33_grid"] = scored(33, grid=True)
+    nms_cases["class_offset_1024"] = class_offset(1024)
+    nms_cases[f"matrix_limit_{matrix_slots}"] = scored(matrix_slots, grid=True)
+    nms_cases[f"block_{matrix_slots + 1}"] = scored(matrix_slots + 1, grid=True)
+    # soft-NMS's score keys: -0 ties +0, negative scores order below them
+    bx, sc, v = scored(114, grid=True)
+    sc[:4] = rng.choice(np.float32([0.0, 0.25, 0.5]), (4, 114))
+    sc[4:] = rng.choice(np.float32([-0.5, -0.0, 0.0, 0.25, 0.5]), (LOOP_B - 4, 114))
+    nms_cases["zero_and_signed_scores"] = (bx, sc, v)
+    # each box overlaps the next (IoU 7/13) but not the one after: every
+    # other box survives hard NMS, two slots of a word decided in one step
+    x = np.arange(70, dtype=np.float32) * 3
+    chain = np.stack([x, np.zeros(70), np.full(70, 10), np.full(70, 10)], -1).astype(np.float32)
+    nms_cases["chain_70"] = (np.repeat(chain[None], LOOP_B, 0), np.repeat(
+        np.linspace(1, 0.5, 70, dtype=np.float32)[None], LOOP_B, 0), np.ones((LOOP_B, 70), bool))
     return nms_cases, match_cases
 
 
@@ -643,18 +673,30 @@ def max_abs_err(got, want) -> float:
     return max(float((g.double() - w.double()).abs().max().item()) for g, w in pairs)
 
 
+def sorted_candidates(boxes, scores, valid):
+    """Boxes and valid flags in stable descending score order, as hard NMS
+    takes them."""
+    order = _stable_desc_order(scores, valid)
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    return sboxes, torch.gather(valid, 1, order).contiguous()
+
+
+def dependent_steps(valid) -> int:
+    return int(valid.sum(1).max().item())
+
+
 def phase_fusion_kernels(card):
-    """Each loop entry vs its plain version on the card; times at the served
-    shapes. Returns the three kernel records (launches filled in later)."""
+    """Each loop entry vs its plain version on the card, bit for bit; times
+    at the served shapes, and of both soft-NMS designs at the K where the
+    wrapper switches. Returns the three kernel records (launches filled in
+    later)."""
     dev = DEVICE
-    nms_cases, match_cases = loop_inputs(np.random.default_rng(SEED + 5))
+    matrix_slots = fusion_loops.soft_nms_matrix_slots(shared_memory_limit(dev))
+    nms_cases, match_cases = loop_inputs(np.random.default_rng(SEED + 5), matrix_slots)
     checks = {}
-    soft_rel = 0.0
     for name, arrays in nms_cases.items():
         boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in arrays)
-        order = _stable_desc_order(scores, valid)
-        sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
-        svalid = torch.gather(valid, 1, order).contiguous()
+        sboxes, svalid = sorted_candidates(boxes, scores, valid)
         keep = fusion_loops.hard_nms_keep(sboxes, svalid, 0.45)
         keep_plain = fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45)
         out, surv = fusion_loops.soft_nms_gaussian(boxes, scores, valid)
@@ -664,16 +706,16 @@ def phase_fusion_kernels(card):
             raise AssertionError(f"hard_nms_keep disagrees with its plain version on {name}")
         if not torch.equal(surv, surv_plain):
             raise AssertionError(f"soft_nms_gaussian's mask disagrees with its plain version on {name}")
-        rel = ((out - out_plain).abs() / out_plain.abs().clamp_min(1e-30)).max().item()
-        if not rel <= SOFT_NMS_RTOL:
-            raise AssertionError(f"soft_nms_gaussian's scores off by {rel} relative on {name}")
+        if not torch.equal(out, out_plain):
+            err = max_abs_err(out, out_plain)
+            raise AssertionError(f"soft_nms_gaussian's scores differ from its plain version by {err} on {name}")
         if name == "all_invalid_frames" and (keep[[2, 5]].any() or surv[[2, 5]].any()):
             raise AssertionError("an all-invalid frame kept a box")
-        soft_rel = max(soft_rel, rel)
+        k = boxes.shape[1]
         checks[name] = {"shape": list(boxes.shape[:2]), "kept": int(keep.sum().item()),
                         "suppressed": int((svalid & ~keep).sum().item()),
-                        "soft_survivors": int(surv.sum().item()), "soft_max_rel_err": rel,
-                        "soft_bit_exact": torch.equal(out, out_plain)}
+                        "soft_survivors": int(surv.sum().item()),
+                        "soft_design": "decay matrix" if k <= matrix_slots else "block"}
     for name, arrays in match_cases.items():
         y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in arrays)
         idx, m = fusion_loops.greedy_match(y, yv, sf, sv, 0.5)
@@ -685,13 +727,18 @@ def phase_fusion_kernels(card):
                                    "matches": int((idx >= 0).sum().item())}
     if checks["match_served_64x50"]["matches"] == 0 or checks["class_offset_256"]["suppressed"] == 0:
         raise AssertionError("the served-shape inputs exercised nothing")
-    emit({"phase": "fusion_kernels", "checks": checks, "card": card["nvidia_smi"]})
+    if checks["class_offset_1024"]["suppressed"] == 0:
+        raise AssertionError("the K = 1024 input suppressed nothing")
+    if checks["chain_70"]["kept"] != LOOP_B * 35:
+        raise AssertionError(f"the chain kept {checks['chain_70']['kept']} boxes, not every other one")
+    emit({"phase": "fusion_kernels", "soft_nms_matrix_slots": matrix_slots, "checks": checks,
+          "card": card["nvidia_smi"]})
 
     # times at the served shapes
     boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in nms_cases["class_offset_256"])
-    order = _stable_desc_order(scores, valid)
-    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
-    svalid = torch.gather(valid, 1, order).contiguous()
+    sboxes, svalid = sorted_candidates(boxes, scores, valid)
+    wboxes, wvalid = sorted_candidates(*(torch.from_numpy(a).to(dev)
+                                         for a in nms_cases["class_offset_1024"]))
     fboxes, fscores, fvalid = (torch.from_numpy(a).to(dev) for a in nms_cases["random"])
     y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in match_cases["served_64x50"])
     keep = fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45)
@@ -702,12 +749,12 @@ def phase_fusion_kernels(card):
             lambda: fusion_loops.hard_nms_keep(sboxes, svalid, 0.45),
             lambda: fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45),
             sboxes.numel() * 4 + 2 * svalid.numel(),
-            int((kept_before * svalid).sum().item()), int(svalid.sum(1).max().item())),
+            int((kept_before * svalid).sum().item()), dependent_steps(svalid)),
         "soft_nms_gaussian": (
             lambda: fusion_loops.soft_nms_gaussian(fboxes, fscores, fvalid),
             lambda: fusion_loops.soft_nms_gaussian_plain(fboxes, fscores, fvalid),
             fboxes.numel() * 4 + fscores.numel() * 4 * 2 + 2 * fvalid.numel(),
-            int((fvalid.sum(1) * (fvalid.sum(1) - 1) // 2).sum().item()), int(fvalid.sum(1).max().item())),
+            int((fvalid.sum(1) * (fvalid.sum(1) - 1) // 2).sum().item()), dependent_steps(fvalid)),
         "greedy_match": (
             lambda: fusion_loops.greedy_match(y, yv, sf, sv, 0.5),
             lambda: fusion_loops.greedy_match_plain(y, yv, sf, sv, 0.5),
@@ -716,27 +763,71 @@ def phase_fusion_kernels(card):
     }
     recs = []
     for entry, (call, plain, bytes_moved, n_iou, steps) in calls.items():
-        symbol, replaces = LOOP_ENTRIES[entry]
+        design, symbol, replaces = LOOP_ENTRIES[entry]
         bound_ms, bound_by = loop_bound(bytes_moved, n_iou)
         dms = device_ms(call, kernel=symbol)
+        if dms is None:
+            raise AssertionError(f"the profiler saw no {symbol} launch for {entry}")
         rec = {
             "name": entry, "route": "cuda", "source": "sfa3d_tpu_torch/csrc/fusion_loops.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": max_abs_err(call(), plain()),
             "ms": cuda_ms(call), "device_ms": dms, "plain_ms": cuda_ms(plain, reps=5, warmup=1),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "library": NO_LIBRARY, "bound_share_device": bound_ms / dms if dms else None,
+            "library": NO_LIBRARY, "bound_share_device": bound_ms / dms,
+            "design": design, "per_step_us": dms * 1e3 / steps,
             "shape": list(sboxes.shape[:2]) if entry == "hard_nms_keep" else
             list(fboxes.shape[:2]) if entry == "soft_nms_gaussian" else [[LOOP_B, 64], [LOOP_B, 50]],
             "dependent_steps": steps, "ious_needed": n_iou, "bytes": bytes_moved,
         }
+        if entry == "hard_nms_keep":
+            rec["device_ms_k1024"] = device_ms(
+                lambda: fusion_loops.hard_nms_keep(wboxes, wvalid, 0.45), kernel=symbol)
         if entry == "soft_nms_gaussian":
-            rec["max_rel_err"] = soft_rel
+            # the block design at the served shape, where the decay matrix replaced it
+            block = lambda: soft_nms_block_direct(fboxes, fscores, fvalid)  # noqa: E731
+            if max_abs_err(block(), plain()) != 0:
+                raise AssertionError("soft_nms_block_kernel at the served shape differs from the plain version")
+            rec["replaced_design_device_ms"] = device_ms(block, kernel=SOFT_BLOCK_KERNEL)
+            if rec["replaced_design_device_ms"] is None:
+                raise AssertionError(f"the profiler saw no {SOFT_BLOCK_KERNEL} launch")
+            rec["designs_at_the_switch"] = soft_nms_switch_times(nms_cases, matrix_slots)
         recs.append(rec)
         emit({"phase": "fusion_kernel_time", **{k: v for k, v in rec.items()
                                                  if k not in ("route", "source", "launches")},
               "card": card["nvidia_smi"]})
     return recs
+
+
+def soft_nms_block_direct(boxes, scores, valid, sigma=0.5, score_thresh=0.001):
+    """soft_nms_block_kernel at any K, past the wrapper's choice by K, to
+    time it where the wrapper takes the matrix design. Counts no launch.
+    Returns (scores, surviving mask)."""
+    b, k = valid.shape
+    lib, dev = fusion_loops._cuda_launch_setup("soft_nms_gaussian", k, (boxes, scores, valid))
+    out, surv = scores.new_empty((b, k)), valid.new_empty((b, k))
+    err = lib.soft_nms_gaussian_block_cuda(
+        boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), out.data_ptr(), surv.data_ptr(),
+        b, k, fusion_loops.inv_sigma(sigma), score_thresh, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"soft_nms_block_kernel launch failed: cudaError {err}")
+    return out, surv
+
+
+def soft_nms_switch_times(nms_cases, matrix_slots):
+    """Device time of the two soft-NMS designs on either side of the K where
+    the wrapper switches; fails unless each K ran its own design's kernel."""
+    out = {}
+    for name, symbol in ((f"matrix_limit_{matrix_slots}", LOOP_ENTRIES["soft_nms_gaussian"][1]),
+                         (f"block_{matrix_slots + 1}", SOFT_BLOCK_KERNEL)):
+        boxes, scores, valid = (torch.from_numpy(a).to(DEVICE) for a in nms_cases[name])
+        dms = device_ms(lambda: fusion_loops.soft_nms_gaussian(boxes, scores, valid), kernel=symbol)
+        if dms is None:
+            raise AssertionError(f"soft_nms_gaussian at K = {boxes.shape[1]} launched no {symbol}")
+        out[name] = {"kernel": symbol, "shape": list(boxes.shape[:2]), "device_ms": dms,
+                     "per_step_us": dms * 1e3 / dependent_steps(valid)}
+    return out
 
 
 def phase_yolo(card):

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` has a plain C interface. It is compiled with `nvcc`
 for Hopper (`sm_90a`) into a shared library under `build/kernels/` at the
 root of the checkout on first use, and loaded with `ctypes`. The library's
 file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.
+rebuilt and a stale library is never loaded. Extra nvcc flags (`flags`,
+for instrumented builds) give a library of their own.
 
 Nothing is built or loaded when a module is imported: the first launch of a
 kernel (or `build_libraries`, which `chip_smoke.py` calls to time the build)
@@ -54,16 +55,16 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, flags: Sequence[str] = ()) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(src.read_bytes() + " ".join((*NVCC_FLAGS, *flags)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str, nvcc: str) -> Tuple[subprocess.Popen, Path, Path]:
-    out = library_path(name)
+def _start_build(name: str, nvcc: str, flags: Sequence[str]) -> Tuple[subprocess.Popen, Path, Path]:
+    out = library_path(name, flags)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -82,15 +83,15 @@ def build_libraries(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         return _build_locked(names)
 
 
-def _build_locked(names: Sequence[str]) -> Dict[str, float]:
+def _build_locked(names: Sequence[str], flags: Sequence[str] = ()) -> Dict[str, float]:
     times = {n: 0.0 for n in names}
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names if not library_path(n, flags).exists()]
     if not todo:
         return times
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    procs = {n: _start_build(n, nvcc) for n in todo}
+    procs = {n: _start_build(n, nvcc, flags) for n in todo}
     errors = []
     for n, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -105,19 +106,22 @@ def _build_locked(names: Sequence[str]) -> Dict[str, float]:
     return times
 
 
-def load_library(name: str, signatures: Dict[str, Tuple[object, Sequence[object]]]) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if needed, load it once per process, and
-    declare `restype`/`argtypes` from `signatures` {fn: (restype, argtypes)}."""
+def load_library(name: str, signatures: Dict[str, Tuple[object, Sequence[object]]],
+                 flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` (with the extra nvcc `flags`) if needed, load
+    it once per process, and declare `restype`/`argtypes` from `signatures`
+    {fn: (restype, argtypes)}."""
+    key = " ".join((name, *flags))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            _build_locked([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            _build_locked([name], flags)
+            lib = ctypes.CDLL(str(library_path(name, flags)))
             for fn, (restype, argtypes) in signatures.items():
                 f = getattr(lib, fn)
                 f.restype = restype
                 f.argtypes = list(argtypes)
-            _loaded[name] = lib
+            _loaded[key] = lib
         return lib
 
 

@@ -1,4 +1,5 @@
-// The fusion path's three sequential loops, one block per frame.
+// The fusion path's three sequential loops: hard NMS, Gaussian soft-NMS and
+// the greedy best-IoU match, one launch per batch.
 //
 // Replaces the lax.fori_loop programs of the JAX package, which XLA ran on
 // the device (they were not Pallas kernels):
@@ -9,43 +10,106 @@
 //   greedy_match       sfa3d_tpu/fusion/fuse.py:64-91
 //
 // What bounds them on this card: neither bytes nor arithmetic. A frame moves
-// a few KB (K boxes in, K flags or scores out) and does K * K IoUs, but the
-// K steps depend on each other: step i reads what steps < i decided. So the
-// floor is the launch latency plus K dependent block-wide reductions per
-// frame. The design does just that and no more: one block per frame (the
-// frames of a batch run side by side on separate SMs, one launch per batch),
-// the frame's boxes and flags in shared memory, and thread j owning slot j's
-// state in registers. Step i recomputes row i of the IoU matrix (thread j
-// computes iou(i, j)) instead of storing the K x K matrix: at K = 256 it
-// would be 262,144 B, above the 232,448 B of shared memory a block may use.
-// Each step is one reduction: __syncthreads_or for hard NMS, an argmax
-// (first index on ties, like jnp.argmax) in two warp-shuffle levels for
-// soft-NMS and the match. Steps whose outcome is known skip the reduction:
-// an invalid row in hard NMS and in the match, and every soft-NMS step after
-// the first with nothing left to select. Warp-level frames, several frames
-// per block or one launch for all three loops are left to later work.
+// a few KB (K boxes in, K flags or scores out) and needs at most K * K IoUs,
+// but the K steps depend on each other: step i reads what steps < i decided.
+// So the floor is the launch plus a chain of K dependent steps per frame,
+// and the cost of a step is the latency of its longest chain of dependent
+// instructions. The two NMS kernels take everything that does not depend on
+// an earlier step out of that chain. Phase 1 computes it, in parallel, into
+// shared memory: one frame is a cluster of kCluster blocks (thread block
+// clusters), whose warps share the rows and write them into the first
+// block's shared memory (distributed shared memory), so a batch of 8 frames
+// spreads phase 1 over 32 SMs, not 8. Phase 2, in that block, runs the chain
+// in one warp with its state in registers and no block barrier. The match
+// keeps the first design: each step recomputes a row of IoUs and takes a
+// block-wide argmax (two __syncthreads).
+//
+// hard_nms_keep, K <= 1024, one design.
+//   Phase 1: the suppression bitmask. Word w of row i has bit b set when slot
+//   j = 32w + b comes after i, is valid, and iou(j, i) > thr: "if i is kept,
+//   it removes j". A warp computes one word: lane b one IoU, then
+//   __ballot_sync. Rows of invalid slots and words left of the diagonal are
+//   never read, so they are not computed, and where two boxes do not overlap
+//   the division is skipped (the IoU is exactly 0 there).
+//   Phase 2: lane w holds word w of the removed set. The slots are decided
+//   32 at a time: the decisions in word c depend on one another only through
+//   word c, so every lane runs that chain in registers (two slots a step:
+//   bit tests, selects and an OR, four dependent instructions; the diagonal
+//   words loaded ahead), then each lane w > c ORs in word w of the rows just
+//   kept (independent loads, off the chain). It is the plain version's
+//   predicate turned forward: "i is suppressed by a kept j < i with
+//   iou(i, j) > thr" is "a kept j removes every later i with iou(i, j) >
+//   thr", with the IoU in the same argument order.
+//   Shared memory: K box edges and areas (20 B each, the sums and products
+//   of the IoU taken once per box), 32 valid words, the diagonal word of
+//   each row, and 32 * ceil(K/32) rows of 32 words (a fixed stride, so the
+//   folds' loads take immediate offsets): 39,040 B at K = 256, 155,776 B at
+//   K = 1024, inside the 232,448 B a block may use on an H100.
+//
+// soft_nms_gaussian, matrix design, K <= soft_nms_matrix_slots (239 on an
+// H100; the wrapper computes it from the card's limit).
+//   Phase 1: the decay matrix D[m][j] = expf(-(q * q) * inv_sigma), q =
+//   iou(m, j), for valid pairs. The decay depends on the pair, not on the
+//   step, so precomputing it changes no bit. The IoU is symmetric bit for bit
+//   (fmaxf and fminf are, and IEEE + and * commute), so each pair is computed
+//   once and written to D[m][j] and D[j][m].
+//   Phase 2: lane l holds slots l, l + 32, ... (at most 8): scores in
+//   registers, processed flags in a bitmask. A step takes the lane's best
+//   score as an ordered 32-bit key (a tree over its slots, first index on
+//   ties), the warp's largest key with __reduce_max_sync and the first slot
+//   holding it with __reduce_min_sync (first index on ties, like
+//   jnp.argmax), exits when nothing finite is left, and decays each lane's
+//   own unprocessed slots by row m of D.
+//   Shared memory: K * K floats, 32 valid words, K boxes: 53,936 B at the
+//   served K = 114.
+// soft_nms_gaussian, block design, for larger K (<= 1024): one block, one
+//   thread per slot, each step a two-level block argmax and a recomputed
+//   IoU. The wrapper (ops/fusion_loops.py) picks the design by K.
 //
 // Bit parity with the plain PyTorch versions (sfa3d_tpu_torch/ops/
 // fusion_loops.py): the IoU repeats fusion/iou.py's float32 steps with
 // __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn, so nvcc cannot contract a
 // product and a sum into a fused multiply-add; the soft-NMS decay is
 // expf(-(iou * iou) * inv_sigma) with inv_sigma = float32(1 / sigma) passed
-// in (the form XLA compiles for a constant sigma). expf may differ from the
-// plain version's exp by an ulp; the build never uses --use_fast_math.
+// in (the form XLA compiles for a constant sigma), the same libm function as
+// PyTorch's exp on the card; the build never uses --use_fast_math.
 //
 // Plain C interface, bound with ctypes (sfa3d_tpu_torch/_build.py). The
 // wrappers check shapes, types, devices and contiguity, allocate the
 // outputs, and raise when the return value is not 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / kWarp;
+constexpr int kMaxWords = 32;             // valid words: 1024 slots
+constexpr int kCluster = 4;               // blocks per frame in the NMS kernels' phase 1
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kKeyNegInf = 0x007fffffu;  // score_key(-INFINITY)
+constexpr uint32_t kKeyPosInf = 0xff800000u;  // score_key(+INFINITY)
+
+// Phase stamps for scripts/torch_loop_phases.py, compiled in only with
+// -DFUSION_LOOPS_PHASE_STAMPS: thread 0 of each block of the two NMS
+// kernels records clock64() at the start (0), after loading the frame (1),
+// after phase 1 (2) and after phase 2 (3, the first block of a cluster).
+#ifdef FUSION_LOOPS_PHASE_STAMPS
+constexpr int kStampBlocks = 4096;
+__device__ long long g_phase_stamps[kStampBlocks * 4];
+#define PHASE_STAMP(n)                                     \
+  if (threadIdx.x == 0 && blockIdx.x < kStampBlocks) {     \
+    g_phase_stamps[blockIdx.x * 4 + (n)] = clock64();      \
+  }
+#else
+#define PHASE_STAMP(n)
+#endif
 
 struct Box {
   float x, y, w, h;
@@ -55,17 +119,87 @@ __device__ __forceinline__ Box load_box(const float* __restrict__ p) {
   return Box{p[0], p[1], p[2], p[3]};
 }
 
+__device__ __forceinline__ Box as_box(const float4& b) { return Box{b.x, b.y, b.z, b.w}; }
+
+// A box as the IoU reads it: its edges x, y, x + w, y + h and its area
+// w * h, each rounded once, as fusion/iou.py rounds them.
+struct Extent {
+  float x0, y0, x1, y1, area;
+};
+
+__device__ __forceinline__ Extent as_extent(const float4& e, float area) {
+  return Extent{e.x, e.y, e.z, e.w, area};
+}
+
+__device__ __forceinline__ Extent extent_of(const Box& b) {
+  return Extent{b.x, b.y, __fadd_rn(b.x, b.w), __fadd_rn(b.y, b.h), __fmul_rn(b.w, b.h)};
+}
+
 // iou(a, b) for a = box1 (the row) and b = box2 (the column), in
-// fusion/iou.py's float32 steps.
-__device__ __forceinline__ float iou_xywh(const Box& a, const Box& b) {
-  const float left = fmaxf(a.x, b.x);
-  const float top = fmaxf(a.y, b.y);
-  const float right = fminf(__fadd_rn(a.x, a.w), __fadd_rn(b.x, b.w));
-  const float bottom = fminf(__fadd_rn(a.y, a.h), __fadd_rn(b.y, b.h));
-  const float inter =
-      __fmul_rn(fmaxf(__fsub_rn(right, left), 0.0f), fmaxf(__fsub_rn(bottom, top), 0.0f));
-  const float uni = __fsub_rn(__fadd_rn(__fmul_rn(a.w, a.h), __fmul_rn(b.w, b.h)), inter);
+// fusion/iou.py's float32 steps: the intersection first, then the rest.
+__device__ __forceinline__ float intersection(const Extent& a, const Extent& b) {
+  const float left = fmaxf(a.x0, b.x0);
+  const float top = fmaxf(a.y0, b.y0);
+  const float right = fminf(a.x1, b.x1);
+  const float bottom = fminf(a.y1, b.y1);
+  return __fmul_rn(fmaxf(__fsub_rn(right, left), 0.0f), fmaxf(__fsub_rn(bottom, top), 0.0f));
+}
+
+__device__ __forceinline__ float iou_given(const Extent& a, const Extent& b, float inter) {
+  const float uni = __fsub_rn(__fadd_rn(a.area, b.area), inter);
   return uni > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
+}
+
+__device__ __forceinline__ float iou_xywh(const Box& a, const Box& b) {
+  const Extent ea = extent_of(a), eb = extent_of(b);
+  return iou_given(ea, eb, intersection(ea, eb));
+}
+
+__device__ __forceinline__ float decay_factor(float q, float inv_sigma) {
+  return expf(__fmul_rn(-__fmul_rn(q, q), inv_sigma));
+}
+
+// The k x k decay matrix in whole float4s, so that what follows it stays
+// 16-byte aligned.
+__host__ __device__ __forceinline__ int matrix_float4s(int k) { return (k * k + 3) / 4; }
+
+__device__ __forceinline__ bool bit_of(const uint32_t* words, int j) {
+  return (words[j >> 5] >> (j & 31)) & 1u;
+}
+
+// A key that orders scores as floats compare: a larger score, a larger key.
+// -0 counts as +0 (equal scores, equal keys: the first index wins) and every
+// NaN as the largest (argmax picks a NaN). 0 is left free for processed
+// slots, below every score's key.
+__device__ __forceinline__ uint32_t score_key(float s) {
+  const uint32_t b = __float_as_uint(__fadd_rn(s, 0.0f));  // -0 + 0 = +0
+  const uint32_t key = b ^ (static_cast<uint32_t>(static_cast<int32_t>(b) >> 31) | 0x80000000u);
+  return isnan(s) ? kFull : key;
+}
+
+// Phase 0 of the NMS kernels: the frame's boxes into `sbox` (as x, y, w, h)
+// or, with `sarea`, as extents (x0, y0, x1, y1 in `sbox`, the areas in
+// `sarea`), and its valid flags, packed 32 to a word, into `svbits`.
+__device__ __forceinline__ void load_frame(const float* __restrict__ boxes,
+                                           const uint8_t* __restrict__ valid, int64_t f, int k,
+                                           float4* sbox, float* sarea, uint32_t* svbits) {
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const Box b = load_box(boxes + (f * k + j) * 4);
+    if (sarea != nullptr) {
+      const Extent e = extent_of(b);
+      sbox[j] = make_float4(e.x0, e.y0, e.x1, e.y1);
+      sarea[j] = e.area;
+    } else {
+      sbox[j] = make_float4(b.x, b.y, b.w, b.h);
+    }
+  }
+  const int lane = threadIdx.x % kWarp;
+  const int nw = (k + kWarp - 1) / kWarp;
+  for (int w = threadIdx.x / kWarp; w < nw; w += blockDim.x / kWarp) {
+    const int j = w * kWarp + lane;
+    const uint32_t bits = __ballot_sync(kFull, j < k && valid[f * k + j] != 0);
+    if (lane == 0) svbits[w] = bits;
+  }
 }
 
 // (v, i) beats (ov, oi) when v is larger, or equal with a smaller index.
@@ -84,7 +218,7 @@ __device__ __forceinline__ void block_argmax(float v, int i, float* wv, int* wi,
                                              int* ri, float& out_v, int& out_i) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1) {
-    take_better(v, i, __shfl_down_sync(0xffffffffu, v, off), __shfl_down_sync(0xffffffffu, i, off));
+    take_better(v, i, __shfl_down_sync(kFull, v, off), __shfl_down_sync(kFull, i, off));
   }
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
@@ -99,8 +233,7 @@ __device__ __forceinline__ void block_argmax(float v, int i, float* wv, int* wi,
     i = lane < n_warps ? wi[lane] : 0x7fffffff;
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1) {
-      take_better(v, i, __shfl_down_sync(0xffffffffu, v, off),
-                  __shfl_down_sync(0xffffffffu, i, off));
+      take_better(v, i, __shfl_down_sync(kFull, v, off), __shfl_down_sync(kFull, i, off));
     }
     if (lane == 0) {
       *rv = v;
@@ -112,45 +245,245 @@ __device__ __forceinline__ void block_argmax(float v, int i, float* wv, int* wi,
   out_i = *ri;
 }
 
-// grid (batch), block >= k threads. boxes (batch, k, 4) in stable score
+// grid (batch * kCluster) in clusters of kCluster blocks, one cluster per
+// frame; block min(1024, 32 k) threads. boxes (batch, k, 4) in stable score
 // order, valid (batch, k) -> keep (batch, k): keep[i] = valid[i] and no kept
-// j < i has iou(i, j) > thr.
-__global__ void hard_nms_keep_kernel(const float* __restrict__ boxes,
-                                     const uint8_t* __restrict__ valid, uint8_t* __restrict__ keep,
-                                     int32_t k, float thr) {
-  extern __shared__ float4 sbox[];
-  __shared__ uint8_t svalid[kMaxThreads];
-  const int64_t f = blockIdx.x;
-  const int j = threadIdx.x;
-  const float* fb = boxes + f * k * 4;
-  Box mine{0.0f, 0.0f, 0.0f, 0.0f};
-  if (j < k) {
-    mine = load_box(fb + 4 * j);
-    sbox[j] = make_float4(mine.x, mine.y, mine.w, mine.h);
-    svalid[j] = valid[f * k + j];
+// j < i has iou(i, j) > thr. Dynamic shared memory: hard_nms_smem(k) in
+// every block of the cluster; the mask is built in the first block's,
+// through distributed shared memory.
+__global__ void __launch_bounds__(kMaxThreads)
+    hard_nms_keep_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
+                         uint8_t* __restrict__ keep, int32_t k, float thr) {
+  const int nw = (k + kWarp - 1) / kWarp;
+  extern __shared__ float4 smem4[];
+  float4* sedge = smem4;                                      // k box edges
+  uint32_t* svbits = reinterpret_cast<uint32_t*>(sedge + k);  // kMaxWords valid words
+  uint32_t* sdiag = svbits + kMaxWords;                       // 32 nw: word i / 32 of row i
+  uint32_t* smask = sdiag + kWarp * nw;                       // 32 nw rows of kMaxWords words
+  float* sarea = reinterpret_cast<float*>(smask + kWarp * nw * kMaxWords);  // k box areas
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  uint32_t* lead_diag = cluster.map_shared_rank(sdiag, 0);
+  uint32_t* lead_mask = cluster.map_shared_rank(smask, 0);
+  const int64_t f = blockIdx.x / blocks;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  PHASE_STAMP(0)
+  load_frame(boxes, valid, f, k, sedge, sarea, svbits);
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < kWarp * nw; i += blockDim.x) sdiag[i] = 0;  // invalid rows
   }
-  __syncthreads();
-  bool kept = false;
-  for (int i = 0; i < k; ++i) {
-    if (!svalid[i]) continue;  // keep[i] is false; the same branch for every thread
-    const float4 r = sbox[i];
-    const bool hit = j < i && kept && iou_xywh(Box{r.x, r.y, r.z, r.w}, mine) > thr;
-    const int any_hit = __syncthreads_or(hit);
-    if (j == i) kept = !any_hit;
+  cluster.sync();  // every block runs, and the lead block's diagonal is zero
+  PHASE_STAMP(1)
+
+  // phase 1: row i, word w >= i / 32, one warp per word, the rows dealt to
+  // the cluster's warps back and forth (long rows first, then short ones).
+  // Where two boxes do not overlap (the intersection is 0, or NaN and then
+  // so is the union) the IoU is exactly 0: the division is skipped, and the
+  // intersection itself runs on every lane with no branch (a lane past k
+  // reads the bytes behind the edges and is masked out).
+  const bool zero_hits = 0.0f > thr;
+  const int all_warps = blocks * warps;
+  const int g = rank * warps + warp;
+  for (int t = 0; t * all_warps < k; ++t) {
+    const int i = t * all_warps + (t % 2 == 0 ? g : all_warps - 1 - g);
+    if (i >= k || !bit_of(svbits, i)) continue;  // never kept: its row is never used
+    const Extent earlier = as_extent(sedge[i], sarea[i]);
+    for (int w = i / kWarp; w < nw; ++w) {
+      const int j = w * kWarp + lane;
+      const bool pair = j > i && ((svbits[w] >> lane) & 1u);  // bit j is 0 for j >= k
+      const float4 e = sedge[j];
+      const float inter = intersection(Extent{e.x, e.y, e.z, e.w, 0.0f}, earlier);
+      bool hit = zero_hits;
+      if (pair && inter > 0.0f) hit = iou_given(as_extent(e, sarea[j]), earlier, inter) > thr;
+      const uint32_t word = __ballot_sync(kFull, pair && hit);
+      if (lane == 0) {
+        lead_mask[i * kMaxWords + w] = word;
+        if (w == i / kWarp) lead_diag[i] = word;
+      }
+    }
   }
-  if (j < k) keep[f * k + j] = kept;
+  cluster.sync();
+  PHASE_STAMP(2)
+  if (rank != 0 || warp != 0) return;
+
+  // phase 2: one warp; lane w holds word w of the removed set. The chain of
+  // word c runs on registers only: its 32 diagonal words come in with eight
+  // 16-byte loads first, and each step decides two slots with bit tests,
+  // selects and an OR (no branch). Row b of word c only sets bits after b,
+  // so bit b of `r` is final once the chain reaches b, and the kept slots of
+  // word c are v & ~r.
+  uint32_t removed = 0, kept_word = 0;
+  for (int c = 0; c < nw; ++c) {
+    uint32_t diag[kWarp];
+    const uint4* d4 = reinterpret_cast<const uint4*>(sdiag + c * kWarp);
+#pragma unroll
+    for (int q = 0; q < kWarp / 4; ++q) {
+      const uint4 d = d4[q];
+      diag[4 * q] = d.x;
+      diag[4 * q + 1] = d.y;
+      diag[4 * q + 2] = d.z;
+      diag[4 * q + 3] = d.w;
+    }
+    uint32_t r = __shfl_sync(kFull, removed, c);
+#pragma unroll
+    for (int b = 0; b < kWarp; b += 2) {  // two slots a step: four dependent operations
+      const uint32_t d0 = diag[b], d1 = diag[b + 1];
+      const uint32_t both = ((d0 >> (b + 1)) & 1u) ? d0 : (d0 | d1);  // off the chain
+      const uint32_t b_kept = (r & (2u << b)) ? d0 : both;
+      const uint32_t b_removed = (r & (2u << b)) ? 0u : d1;
+      r |= (r & (1u << b)) ? b_removed : b_kept;
+    }
+    const uint32_t kept = svbits[c] & ~r;
+    kept_word = lane == c ? kept : kept_word;
+    // lane w folds word w of the rows just kept: independent loads, off the
+    // chain (lanes past nw fold words that are never read)
+    const uint32_t* rows = smask + c * kWarp * kMaxWords + lane;
+    uint32_t acc = 0;
+#pragma unroll
+    for (int b = 0; b < kWarp; ++b) acc |= rows[b * kMaxWords] & (0u - ((kept >> b) & 1u));
+    removed |= acc;
+  }
+  for (int w = 0; w < nw; ++w) {
+    const uint32_t kw = __shfl_sync(kFull, kept_word, w);
+    const int j = w * kWarp + lane;
+    if (j < k) keep[f * k + j] = (kw >> lane) & 1u;
+  }
+  PHASE_STAMP(3)
 }
 
-// grid (batch), block >= k threads. Gaussian soft-NMS in slot order:
-// repeatedly select the highest unprocessed score, freeze it, and decay every
-// other unprocessed score by expf(-(iou * iou) * inv_sigma). Writes the final
-// scores (0 for invalid slots) and surv = valid & score > score_thresh.
-__global__ void soft_nms_gaussian_kernel(const float* __restrict__ boxes,
-                                         const float* __restrict__ scores,
-                                         const uint8_t* __restrict__ valid,
-                                         float* __restrict__ out_scores,
-                                         uint8_t* __restrict__ surv, int32_t k, float inv_sigma,
-                                         float score_thresh) {
+// Phase 2 of the soft-NMS matrix kernel: the dependent steps, one warp, lane
+// holding slots lane + 32 q; bit q of `open` marks an unprocessed valid slot
+// (all valid ones at the start). Processed slots have the key 0.
+template <int kSlots>
+__device__ __forceinline__ void soft_nms_steps(float (&s)[kSlots], uint32_t open,
+                                               const float* __restrict__ decay, int k,
+                                               int lane) {
+  const float* col = decay + lane;
+  for (int step = 0; step < k; ++step) {
+    // the lane's best slot, as a tree: on ties the left one, of lower index
+    uint32_t key[kSlots], at[kSlots];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      key[q] = ((open >> q) & 1u) ? score_key(s[q]) : 0u;
+      at[q] = q * kWarp + lane;
+    }
+#pragma unroll
+    for (int stride = 1; stride < kSlots; stride *= 2) {
+#pragma unroll
+      for (int q = 0; q + stride < kSlots; q += 2 * stride) {
+        const bool right = key[q + stride] > key[q];
+        key[q] = right ? key[q + stride] : key[q];
+        at[q] = right ? at[q + stride] : at[q];
+      }
+    }
+    const uint32_t best = key[0];
+    const uint32_t top = __reduce_max_sync(kFull, best);
+    const uint32_t m = __reduce_min_sync(kFull, best == top ? at[0] : kFull);
+    // nothing finite left: -inf (or only processed slots), +inf or NaN at
+    // the top; tested after m, so that the test waits beside the second
+    // reduction
+    if (top <= kKeyNegInf || top >= kKeyPosInf) break;
+    open &= ~(static_cast<uint32_t>(lane == static_cast<int>(m % kWarp)) << (m / kWarp));
+    const float* row = col + m * k;  // a slot past k reads past the row and discards it
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      const float decayed = __fmul_rn(s[q], row[q * kWarp]);
+      s[q] = ((open >> q) & 1u) ? decayed : s[q];
+    }
+  }
+}
+
+// grid (batch * kCluster) in clusters of kCluster blocks, one cluster per
+// frame; block min(1024, 32 k) threads; k <= 32 kSlots. Gaussian soft-NMS in
+// slot order: repeatedly select the highest unprocessed score, freeze it,
+// and decay every other unprocessed score by expf(-(iou * iou) * inv_sigma).
+// Writes the final scores (0 for invalid slots) and surv = valid & score >
+// score_thresh. Dynamic shared memory: soft_nms_matrix_smem(k) in every block
+// of the cluster; the matrix is built in the first block's.
+template <int kSlots>
+__global__ void __launch_bounds__(kMaxThreads)
+    soft_nms_matrix_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
+                           const uint8_t* __restrict__ valid, float* __restrict__ out_scores,
+                           uint8_t* __restrict__ surv, int32_t k, float inv_sigma,
+                           float score_thresh) {
+  // The matrix comes first: the last row's reads past k land in the valid
+  // words behind it, inside the block's shared memory.
+  extern __shared__ float4 smem4[];
+  float* decay = reinterpret_cast<float*>(smem4);                        // k x k
+  uint32_t* svbits = reinterpret_cast<uint32_t*>(smem4 + matrix_float4s(k));  // kMaxWords
+  float4* sbox = reinterpret_cast<float4*>(svbits + kMaxWords);          // k boxes
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  float* lead_decay = cluster.map_shared_rank(decay, 0);
+  const int64_t f = blockIdx.x / blocks;
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  PHASE_STAMP(0)
+  load_frame(boxes, valid, f, k, sbox, nullptr, svbits);
+  cluster.sync();  // every block of the cluster runs
+  PHASE_STAMP(1)
+
+  // phase 1: one warp per row m, the pairs m < j, the rows dealt to the
+  // cluster's warps back and forth; the matrix is built in the first
+  // block's shared memory. Boxes that do not overlap have an IoU of exactly
+  // 0 and the decay d0.
+  const float d0 = decay_factor(0.0f, inv_sigma);
+  const int all_warps = blocks * (blockDim.x / kWarp);
+  const int g = rank * (blockDim.x / kWarp) + warp;
+  for (int t = 0; t * all_warps < k; ++t) {
+    const int m = t * all_warps + (t % 2 == 0 ? g : all_warps - 1 - g);
+    if (m >= k || !bit_of(svbits, m)) continue;  // never selected, never decayed
+    const Extent bm = extent_of(as_box(sbox[m]));
+    for (int j = m + 1 + lane; j < k; j += kWarp) {
+      if (!bit_of(svbits, j)) continue;
+      const Extent bj = extent_of(as_box(sbox[j]));
+      const float inter = intersection(bm, bj);
+      const float d = inter > 0.0f ? decay_factor(iou_given(bm, bj, inter), inv_sigma) : d0;
+      lead_decay[m * k + j] = d;
+      lead_decay[j * k + m] = d;
+    }
+  }
+  cluster.sync();
+  PHASE_STAMP(2)
+  if (rank != 0 || warp != 0) return;
+
+  // phase 2: one warp; lane holds slots lane + 32 q
+  float s[kSlots];
+  uint32_t valid_bits = 0;  // bit q: slot lane + 32 q is valid
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = q * kWarp + lane;
+    const bool v = j < k && bit_of(svbits, j);
+    s[q] = v ? scores[f * k + j] : -INFINITY;
+    valid_bits |= static_cast<uint32_t>(v) << q;
+  }
+  soft_nms_steps<kSlots>(s, valid_bits, decay, k, lane);
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = q * kWarp + lane;
+    if (j < k) {
+      const bool v = (valid_bits >> q) & 1u;
+      const float out = v ? s[q] : 0.0f;
+      out_scores[f * k + j] = out;
+      surv[f * k + j] = v && out > score_thresh;
+    }
+  }
+  PHASE_STAMP(3)
+}
+
+// grid (batch), block >= k threads, k <= 1024: the block design for a K whose
+// decay matrix does not fit. Thread j owns slot j; each step is a block
+// argmax and a recomputed IoU.
+__global__ void soft_nms_block_kernel(const float* __restrict__ boxes,
+                                      const float* __restrict__ scores,
+                                      const uint8_t* __restrict__ valid,
+                                      float* __restrict__ out_scores,
+                                      uint8_t* __restrict__ surv, int32_t k, float inv_sigma,
+                                      float score_thresh) {
   extern __shared__ float4 sbox[];
   __shared__ float wv[kMaxWarps];
   __shared__ int wi[kMaxWarps];
@@ -175,9 +508,7 @@ __global__ void soft_nms_gaussian_kernel(const float* __restrict__ boxes,
     block_argmax(processed ? -INFINITY : s, j, wv, wi, &rv, &ri, best, m);
     if (!isfinite(best)) break;  // nothing left: no later step changes anything
     if (!processed && j != m) {
-      const float4 r = sbox[m];
-      const float q = iou_xywh(Box{r.x, r.y, r.z, r.w}, mine);
-      s = __fmul_rn(s, expf(__fmul_rn(-__fmul_rn(q, q), inv_sigma)));
+      s = __fmul_rn(s, decay_factor(iou_xywh(as_box(sbox[m]), mine), inv_sigma));
     }
     if (j == m) processed = true;
   }
@@ -227,8 +558,7 @@ __global__ void greedy_match_kernel(const float* __restrict__ yolo_boxes,
     }
     float r = -INFINITY;  // threads past ks never win
     if (j < ks) {
-      const float4 y = sbox[i];
-      r = sv && !matched ? iou_xywh(Box{y.x, y.y, y.z, y.w}, mine) : -1.0f;
+      r = sv && !matched ? iou_xywh(as_box(sbox[i]), mine) : -1.0f;
     }
     float best;
     int jm;
@@ -245,8 +575,23 @@ int threads_for(int32_t n) {
   return t < kWarp ? kWarp : t;
 }
 
-// Runs `launch_fn` with `device` current; the caller's device is restored
-// afterwards. Returns the first CUDA error (0 on success).
+// One warp per row in phase 1, at most 1024 threads.
+int phase_threads(int32_t k) { return k >= kMaxWarps ? kMaxThreads : k * kWarp; }
+
+size_t hard_nms_smem(int32_t k) {
+  const size_t rows = (static_cast<size_t>(k) + kWarp - 1) / kWarp * kWarp;
+  return static_cast<size_t>(k) * (sizeof(float4) + sizeof(float)) + kMaxWords * 4 + rows * 4 +
+         rows * kMaxWords * 4;
+}
+
+size_t soft_nms_matrix_smem(int32_t k) {
+  return static_cast<size_t>(matrix_float4s(k)) * sizeof(float4) + kMaxWords * 4 +
+         static_cast<size_t>(k) * sizeof(float4);
+}
+
+// Runs `launch_fn` (which launches and returns a cudaError_t from any set-up
+// call) with `device` current; the caller's device is restored afterwards.
+// Returns the first CUDA error (0 on success).
 template <typename F>
 int on_device(int32_t device, F launch_fn) {
   int prev = 0;
@@ -256,8 +601,8 @@ int on_device(int32_t device, F launch_fn) {
     err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  launch_fn();
-  err = cudaGetLastError();
+  err = launch_fn();
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (prev != device) {
     const cudaError_t back = cudaSetDevice(prev);
     if (err == cudaSuccess) err = back;
@@ -265,34 +610,113 @@ int on_device(int32_t device, F launch_fn) {
   return static_cast<int>(err);
 }
 
+// Launches `kernel` on `batch` clusters of kCluster blocks (one cluster per
+// frame), each block with `threads` threads and `smem` bytes of dynamic
+// shared memory, allowing more than the default 48 KB first.
+template <typename... Params, typename... Args>
+cudaError_t launch_in_clusters(void (*kernel)(Params...), int64_t batch, int threads, size_t smem,
+                               void* stream, Args... args) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = kCluster;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(batch * kCluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <int kSlots>
+cudaError_t launch_soft_matrix(const void* boxes, const void* scores, const void* valid,
+                               void* out_scores, void* surv, int64_t batch, int32_t k,
+                               float inv_sigma, float score_thresh, void* stream) {
+  return launch_in_clusters(soft_nms_matrix_kernel<kSlots>, batch, phase_threads(k),
+                            soft_nms_matrix_smem(k), stream, static_cast<const float*>(boxes),
+                            static_cast<const float*>(scores), static_cast<const uint8_t*>(valid),
+                            static_cast<float*>(out_scores), static_cast<uint8_t*>(surv), k,
+                            inv_sigma, score_thresh);
+}
+
 }  // namespace
+
+#ifdef FUSION_LOOPS_PHASE_STAMPS
+// Copies the first n phase stamps (4 per block) to `out` on the host.
+extern "C" int fusion_phase_stamps(long long* out, int32_t n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_phase_stamps, n * sizeof(long long)));
+}
+#endif
+
+// The most dynamic shared memory one block may opt in to on `device`.
+extern "C" int fusion_smem_limit(int32_t device, int32_t* bytes) {
+  int v = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *bytes = v;
+  return static_cast<int>(err);
+}
 
 // boxes (batch, k, 4) float32, valid (batch, k) bool -> keep (batch, k)
 // bool; all contiguous on `device`; 1 <= k <= 1024, batch >= 1.
 extern "C" int hard_nms_keep_cuda(const void* boxes, const void* valid, void* keep, int64_t batch,
                                   int32_t k, float thr, int32_t device, void* stream) {
   return on_device(device, [&] {
-    hard_nms_keep_kernel<<<static_cast<unsigned int>(batch), threads_for(k),
-                           static_cast<size_t>(k) * sizeof(float4),
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(boxes), static_cast<const uint8_t*>(valid),
-        static_cast<uint8_t*>(keep), k, thr);
+    return launch_in_clusters(hard_nms_keep_kernel, batch, phase_threads(k), hard_nms_smem(k),
+                              stream, static_cast<const float*>(boxes),
+                              static_cast<const uint8_t*>(valid), static_cast<uint8_t*>(keep), k,
+                              thr);
   });
 }
 
-// boxes (batch, k, 4), scores (batch, k) float32, valid (batch, k) bool ->
-// out_scores (batch, k) float32, surv (batch, k) bool; 1 <= k <= 1024.
+// The matrix design. boxes (batch, k, 4), scores (batch, k) float32, valid
+// (batch, k) bool -> out_scores (batch, k) float32, surv (batch, k) bool;
+// 1 <= k <= 256 and soft_nms_matrix_smem(k) within the block's limit (the
+// wrapper's soft_nms_matrix_slots).
 extern "C" int soft_nms_gaussian_cuda(const void* boxes, const void* scores, const void* valid,
                                       void* out_scores, void* surv, int64_t batch, int32_t k,
                                       float inv_sigma, float score_thresh, int32_t device,
                                       void* stream) {
   return on_device(device, [&] {
-    soft_nms_gaussian_kernel<<<static_cast<unsigned int>(batch), threads_for(k),
-                               static_cast<size_t>(k) * sizeof(float4),
-                               static_cast<cudaStream_t>(stream)>>>(
+    switch ((k + kWarp - 1) / kWarp) {
+#define SOFT_NMS_CASE(n) \
+  case n:                \
+    return launch_soft_matrix<n>(boxes, scores, valid, out_scores, surv, batch, k, inv_sigma, \
+                                 score_thresh, stream);
+      SOFT_NMS_CASE(1)
+      SOFT_NMS_CASE(2)
+      SOFT_NMS_CASE(3)
+      SOFT_NMS_CASE(4)
+      SOFT_NMS_CASE(5)
+      SOFT_NMS_CASE(6)
+      SOFT_NMS_CASE(7)
+      SOFT_NMS_CASE(8)
+#undef SOFT_NMS_CASE
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
+}
+
+// The block design, same arguments; 1 <= k <= 1024.
+extern "C" int soft_nms_gaussian_block_cuda(const void* boxes, const void* scores,
+                                            const void* valid, void* out_scores, void* surv,
+                                            int64_t batch, int32_t k, float inv_sigma,
+                                            float score_thresh, int32_t device, void* stream) {
+  return on_device(device, [&] {
+    soft_nms_block_kernel<<<static_cast<unsigned int>(batch), threads_for(k),
+                            static_cast<size_t>(k) * sizeof(float4),
+                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(boxes), static_cast<const float*>(scores),
         static_cast<const uint8_t*>(valid), static_cast<float*>(out_scores),
         static_cast<uint8_t*>(surv), k, inv_sigma, score_thresh);
+    return cudaSuccess;
   });
 }
 
@@ -310,5 +734,6 @@ extern "C" int greedy_match_cuda(const void* yolo_boxes, const void* yolo_valid,
         static_cast<const float*>(yolo_boxes), static_cast<const uint8_t*>(yolo_valid),
         static_cast<const float*>(sfa_boxes), static_cast<const uint8_t*>(sfa_valid),
         static_cast<int32_t*>(match_idx), static_cast<uint8_t*>(sfa_matched), ky, ks, thr);
+    return cudaSuccess;
   });
 }

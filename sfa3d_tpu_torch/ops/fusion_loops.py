@@ -5,8 +5,7 @@ with plain PyTorch twins.
 The JAX package runs each as a `lax.fori_loop` over K dependent steps
 (`sfa3d_tpu/fusion/nms.py:33, :54`, `sfa3d_tpu/fusion/fuse.py:64`). Written
 as an eager PyTorch loop each step would be several small launches, so each
-entry here is one launch per batch: one block per frame, K steps inside the
-block.
+entry here is one launch per batch.
 
   hard_nms_keep      (B, K, 4) xywh boxes in stable score order + (B, K)
                      valid -> (B, K) keep
@@ -15,11 +14,21 @@ block.
   greedy_match       (B, Ky, 4) + (B, Ky) valid, (B, Ks, 4) + (B, Ks) valid
                      -> match_idx (B, Ky) int32 (-1: none), sfa_matched (B, Ks)
 
-Each entry launches its kernel for CUDA tensors (or raises) and takes its
+The two NMS kernels compute what does not depend on an earlier step first,
+with a cluster of blocks per frame, into shared memory (hard NMS: the
+suppression bitmask; soft-NMS: the decay of every pair), then run the K
+dependent steps in one warp. Soft-NMS has two designs, chosen here by K: the
+decay matrix needs K * K floats of shared memory, so up to
+`soft_nms_matrix_slots` of the card's limit (239 on an H100) the matrix
+kernel runs, and above it a block kernel with one thread per slot that
+recomputes a row of IoUs per step. The match is one block per frame.
+
+Each entry launches a kernel for CUDA tensors (or raises) and takes its
 plain version (`*_plain`: a Python loop over the K steps, vectorised over
-frames) only for tensors on the CPU. Each keeps a `launches` counter. A
-block holds at most 1024 slots (the K of hard NMS and soft-NMS, Ky and Ks
-of the match); the wrappers raise above that.
+frames) only for tensors on the CPU. Each keeps a `launches` counter (both
+soft-NMS designs count under `soft_nms_gaussian.launches`). A frame holds
+at most 1024 slots (the K of hard NMS and soft-NMS, Ky and Ks of the
+match); the wrappers raise above that.
 """
 
 from __future__ import annotations
@@ -33,23 +42,25 @@ import torch
 from sfa3d_tpu_torch._build import finish_launch, load_library
 from sfa3d_tpu_torch.fusion.iou import pairwise_iou_xywh
 
-MAX_SLOTS = 1024  # threads in one block: one slot per thread
+MAX_SLOTS = 1024  # slots per frame: one per thread of a block, 32 words of 32 bits
+MATRIX_SLOTS_PER_LANE = 8  # the soft-NMS matrix kernel's registers: K <= 256
 
 _c_ptr, _c_i32, _c_i64, _c_f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
+_SOFT_NMS_ARGS = (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_f32, _c_f32, _c_i32, _c_ptr)
 _SIGNATURES = {
+    "fusion_smem_limit": (ctypes.c_int, (_c_i32, ctypes.POINTER(_c_i32))),
     "hard_nms_keep_cuda": (
         ctypes.c_int, (_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_f32, _c_i32, _c_ptr),
     ),
-    "soft_nms_gaussian_cuda": (
-        ctypes.c_int,
-        (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_f32, _c_f32, _c_i32, _c_ptr),
-    ),
+    "soft_nms_gaussian_cuda": (ctypes.c_int, _SOFT_NMS_ARGS),  # the matrix design
+    "soft_nms_gaussian_block_cuda": (ctypes.c_int, _SOFT_NMS_ARGS),
     "greedy_match_cuda": (
         ctypes.c_int,
         (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_i32, _c_f32,
          _c_i32, _c_ptr),
     ),
 }
+_matrix_slots = {}  # device index -> soft_nms_matrix_slots of its shared memory
 
 
 def inv_sigma(sigma: float) -> float:
@@ -73,7 +84,7 @@ def _check_set(boxes: torch.Tensor, valid: torch.Tensor, *, what: str) -> None:
 def _cuda_launch_setup(name: str, slots: int, tensors) -> Tuple[ctypes.CDLL, torch.device]:
     """The library and device for a launch; raises for a device that is not
     CUDA (the CPU never gets here), a tensor that is not contiguous, or more
-    slots than one block has threads."""
+    than MAX_SLOTS slots."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
@@ -84,6 +95,35 @@ def _cuda_launch_setup(name: str, slots: int, tensors) -> Tuple[ctypes.CDLL, tor
     if slots > MAX_SLOTS:
         raise ValueError(f"{name} takes at most {MAX_SLOTS} slots per frame; got {slots}")
     return load_library("fusion_loops", _SIGNATURES), dev
+
+
+def _device_matrix_slots(lib: ctypes.CDLL, dev: torch.device) -> int:
+    """soft_nms_matrix_slots of the shared memory a block may use on `dev`,
+    asked of the library once per device."""
+    slots = _matrix_slots.get(dev.index)
+    if slots is None:
+        v = _c_i32(0)
+        err = lib.fusion_smem_limit(dev.index, ctypes.byref(v))
+        if err != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed on {dev}: cudaError {err}")
+        slots = _matrix_slots[dev.index] = soft_nms_matrix_slots(v.value)
+    return slots
+
+
+def soft_nms_matrix_smem(k: int) -> int:
+    """Bytes of shared memory the soft-NMS matrix kernel takes at K slots:
+    the K x K decay matrix in whole float4s, 32 valid words, K boxes."""
+    return 16 * -(-k * k // 4) + 128 + 16 * k
+
+
+def soft_nms_matrix_slots(smem_limit: int) -> int:
+    """The largest K whose soft-NMS matrix kernel fits `smem_limit` bytes of
+    shared memory, and at most 32 * MATRIX_SLOTS_PER_LANE: 239 at an H100's
+    232,448."""
+    k = MATRIX_SLOTS_PER_LANE * 32
+    while k > 0 and soft_nms_matrix_smem(k) > smem_limit:
+        k -= 1
+    return k
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +147,9 @@ def hard_nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold:
 def hard_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """(B, K, 4) float32 xywh boxes, already in stable descending score
     order, + (B, K) bool valid -> (B, K) bool keep, in the same order. CUDA
-    tensors launch `hard_nms_keep_kernel` (one launch, one block per frame);
-    CPU tensors take `hard_nms_keep_plain`."""
+    tensors launch `hard_nms_keep_kernel` (one launch, one cluster of blocks
+    per frame: the suppression bitmask, then a one-warp scan); CPU tensors
+    take `hard_nms_keep_plain`."""
     _check_set(boxes, valid, what="hard_nms_keep")
     if boxes.device.type == "cpu":
         return hard_nms_keep_plain(boxes, valid, iou_threshold)
@@ -160,8 +201,9 @@ def soft_nms_gaussian(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Te
                       sigma: float = 0.5, score_thresh: float = 0.001):
     """(B, K, 4) float32 xywh boxes + (B, K) float32 scores + (B, K) bool
     valid -> (decayed scores (B, K), surviving mask (B, K)), in slot order.
-    CUDA tensors launch `soft_nms_gaussian_kernel` (one launch); CPU tensors
-    take `soft_nms_gaussian_plain`."""
+    CUDA tensors launch one kernel: `soft_nms_matrix_kernel` when K <=
+    `soft_nms_matrix_slots` of the card's shared memory, else
+    `soft_nms_block_kernel`. CPU tensors take `soft_nms_gaussian_plain`."""
     _check_set(boxes, valid, what="soft_nms_gaussian")
     if scores.shape != valid.shape or scores.dtype != torch.float32:
         raise ValueError(f"soft_nms_gaussian: scores must be float32 {tuple(valid.shape)}")
@@ -173,7 +215,9 @@ def soft_nms_gaussian(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Te
     surv = valid.new_empty((b, k))
     if b == 0 or k == 0:
         return out, surv
-    err = lib.soft_nms_gaussian_cuda(
+    matrix = k <= _device_matrix_slots(lib, dev)
+    launch = lib.soft_nms_gaussian_cuda if matrix else lib.soft_nms_gaussian_block_cuda
+    err = launch(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), out.data_ptr(), surv.data_ptr(),
         b, k, inv_sigma(sigma), score_thresh, dev.index,
         torch.cuda.current_stream(dev).cuda_stream,

@@ -159,7 +159,12 @@ def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
 def _fake_fusion_lib(refuse):
     from types import SimpleNamespace
 
-    return SimpleNamespace(hard_nms_keep_cuda=refuse, soft_nms_gaussian_cuda=refuse,
+    def smem_limit(device, out):
+        out._obj.value = 232448
+        return 0
+
+    return SimpleNamespace(fusion_smem_limit=smem_limit, hard_nms_keep_cuda=refuse,
+                           soft_nms_gaussian_cuda=refuse, soft_nms_gaussian_block_cuda=refuse,
                            greedy_match_cuda=refuse)
 
 
@@ -177,6 +182,7 @@ def test_fusion_loop_failed_launch_raises_never_falls_back(monkeypatch, entry):
 
     monkeypatch.setattr(fusion_loops, "load_library",
                         lambda name, signatures: _fake_fusion_lib(lambda *a: 98))
+    monkeypatch.setattr(fusion_loops, "_matrix_slots", {})
     monkeypatch.setattr(fusion_loops, f"{entry}_plain", plain)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
     cuda = lambda t: torch.Tensor._make_subclass(_CudaTyped, t)  # noqa: E731
@@ -217,3 +223,12 @@ def test_kernel_sources_ship_with_the_package():
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     lib = _build.library_path("bev_counts")
     assert lib.parent == ROOT / "build" / "kernels"
+
+
+def test_extra_nvcc_flags_build_a_library_of_their_own():
+    from sfa3d_tpu_torch import _build
+
+    plain = _build.library_path("fusion_loops")
+    stamped = _build.library_path("fusion_loops", ("-DFUSION_LOOPS_PHASE_STAMPS",))
+    assert plain != stamped and plain.parent == stamped.parent
+    assert stamped == _build.library_path("fusion_loops", ["-DFUSION_LOOPS_PHASE_STAMPS"])
