@@ -39,9 +39,14 @@ Phases, each printing one JSON line:
           soft-NMS on either side of soft_nms_matrix_slots (the decay-matrix
           kernel at the limit, the block kernel one above it and at 1024),
           zero and signed scores (-0 ties +0; negative scores order), a
-          chain of boxes that each overlap the next (every other one kept).
-          Event, device, per-step and plain ms at the served shape, device
-          ms of both soft-NMS designs at the switch and at the served shape
+          chain of boxes that each overlap the next (every other one kept);
+          the match also on a grid where every YOLO row has a candidate, a
+          frame with none, threshold 0 with touching boxes (IoU exactly 0),
+          and on either side of greedy_match_matrix_rows at Ks = 256, each
+          input through the wrapper and through the block design. Event,
+          device, per-step and plain ms at the served shape, device ms of
+          both designs of soft-NMS and of the match at the switch and at
+          the served shape, candidate rows per frame
   yolo    YOLOv8n heads at 1 x 224 x 640 on the GPU vs the CPU, per level
   fused_serve  BatchingFusedServer(FusedDetector(imgsz=(224, 640))),
           max_batch 8, answers 16 requests (scan + seeded 375 x 1242 uint8
@@ -51,8 +56,8 @@ Phases, each printing one JSON line:
           boxes, classes, source exact, scores within 1e-4) when the CPU
           path is given the served networks' outputs for that frame, and the
           CPU networks' own outputs lie within 1e-3 of those; the replies
-          hold YOLO, SFA and at least 16 fused rows. Per-batch ms at buckets
-          1 and 8 and a stage split
+          hold YOLO, SFA and at least 16 fused rows; the match's candidate
+          rows per frame. Per-batch ms at buckets 1 and 8 and a stage split
 Then one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -580,9 +585,12 @@ LOOP_ENTRIES = {  # entry -> (design at the served shape, its kernel symbol, TPU
                       "sfa3d_tpu/fusion/nms.py:33"),
     "soft_nms_gaussian": ("decay matrix, one-warp argmax chain", "soft_nms_matrix_kernel",
                           "sfa3d_tpu/fusion/nms.py:54"),
-    "greedy_match": ("block argmax per step", "greedy_match_kernel", "sfa3d_tpu/fusion/fuse.py:64"),
+    "greedy_match": ("candidate keys, one-warp chain over candidate rows", "greedy_match_kernel",
+                     "sfa3d_tpu/fusion/fuse.py:64"),
 }
 SOFT_BLOCK_KERNEL = "soft_nms_block_kernel"  # soft-NMS above soft_nms_matrix_slots
+MATCH_BLOCK_KERNEL = "greedy_match_block_kernel"  # the match above greedy_match_matrix_rows
+MATCH_KS_CAP = 256  # Ks of the inputs on either side of the match's design switch
 NO_LIBRARY = ("none: no single PyTorch call computes it (torchvision is absent, and its "
               "NMS keeps other rules)")
 
@@ -597,14 +605,15 @@ def loop_boxes(rng, b, k, grid=False):
     return np.concatenate([xy, rng.uniform(4, 120, (b, k, 2)).astype(np.float32)], -1)
 
 
-def loop_inputs(rng, matrix_slots):
+def loop_inputs(rng, matrix_slots, match_rows):
     """The fusion_kernels phase's inputs: {name: (boxes, scores, valid)} for
-    the two NMS entries and {name: (yolo, yolo_valid, sfa, sfa_valid)} for
-    the match. The served shapes: 256 YOLO candidates (hard NMS), 114
-    fused slots (soft-NMS), 64 YOLO x 50 SFA boxes (the match). K = 1, 33
-    and 1024 test the hard-NMS words at their edges; K = matrix_slots and
-    matrix_slots + 1 run the two soft-NMS designs on either side of the
-    choice (K = 1024 runs the block design too)."""
+    the two NMS entries and {name: (yolo, yolo_valid, sfa, sfa_valid,
+    threshold)} for the match. The served shapes: 256 YOLO candidates (hard
+    NMS), 114 fused slots (soft-NMS), 64 YOLO x 50 SFA boxes (the match).
+    K = 1, 33 and 1024 test the hard-NMS words at their edges; K =
+    matrix_slots and matrix_slots + 1 run the two soft-NMS designs on either
+    side of the choice (K = 1024 runs the block design too); Ky = match_rows
+    and match_rows + 1 at Ks = MATCH_KS_CAP do the same for the match."""
     def scored(k, grid=False):
         return (loop_boxes(rng, LOOP_B, k, grid), rng.uniform(0, 1, (LOOP_B, k)).astype(np.float32),
                 rng.random((LOOP_B, k)) < 0.8)
@@ -629,16 +638,16 @@ def loop_inputs(rng, matrix_slots):
     def matched(ky, ks, grid=False):
         yolo = loop_boxes(rng, LOOP_B, ky, grid)
         sfa = yolo[:, :ks] + rng.normal(0, 4, (LOOP_B, ks, 4)).astype(np.float32)
-        return yolo, rng.random((LOOP_B, ky)) < 0.8, sfa, rng.random((LOOP_B, ks)) < 0.8
+        return yolo, rng.random((LOOP_B, ky)) < 0.8, sfa, rng.random((LOOP_B, ks)) < 0.8, 0.5
 
     match_cases = {"served_64x50": matched(64, 50)}
-    y, yv, sf, sv = matched(64, 50)
+    y, yv, sf, sv, thr = matched(64, 50)
     yv[3] = False
     sv[[3, 6]] = False
-    match_cases["all_invalid_frames"] = (y, yv, sf, sv)
-    y, yv, sf, sv = matched(64, 50, grid=True)
+    match_cases["all_invalid_frames"] = (y, yv, sf, sv, thr)
+    y, yv, sf, sv, thr = matched(64, 50, grid=True)
     sf[:, 1::2] = sf[:, ::2]  # tied IoUs: the lowest index wins
-    match_cases["ties"] = (y, yv, sf, sv)
+    match_cases["ties"] = (y, yv, sf, sv, thr)
     match_cases["wide_256x256"] = matched(256, 256, grid=True)
     # drawn last, so that the inputs above stay as they were before these
     nms_cases["k1"] = scored(1)
@@ -657,6 +666,26 @@ def loop_inputs(rng, matrix_slots):
     chain = np.stack([x, np.zeros(70), np.full(70, 10), np.full(70, 10)], -1).astype(np.float32)
     nms_cases["chain_70"] = (np.repeat(chain[None], LOOP_B, 0), np.repeat(
         np.linspace(1, 0.5, 70, dtype=np.float32)[None], LOOP_B, 0), np.ones((LOOP_B, 70), bool))
+    # the match's chain walks only the rows with a candidate: every row has
+    # one (grid boxes, each YOLO box half a pixel off an SFA box, 64 rows
+    # for 50 boxes), a frame has none, or threshold 0 meets touching boxes
+    sf = loop_boxes(rng, LOOP_B, 50, grid=True)
+    y = np.ascontiguousarray(sf[:, np.arange(64) % 50]) + np.float32(0.5)
+    match_cases["every_row_candidate_64x50"] = (y, np.ones((LOOP_B, 64), bool), sf,
+                                                np.ones((LOOP_B, 50), bool), 0.5)
+    y, yv, sf, sv, thr = matched(64, 50)
+    sf[3, :, 0] += np.float32(5000.0)
+    match_cases["no_candidate_frame"] = (y, yv, sf, sv, thr)
+    y, yv, sf, sv, _ = matched(64, 50)
+    sf[:, :25, 0] = y[:, :25, 0] + y[:, :25, 2]  # left edge on the YOLO box's right edge
+    sf[:, :25, 1] = y[:, :25, 1]
+    match_cases["touching_thr0"] = (y, yv, sf, sv, 0.0)
+    for name, ky in ((f"matrix_limit_{match_rows}x{MATCH_KS_CAP}", match_rows),
+                     (f"block_{match_rows + 1}x{MATCH_KS_CAP}", match_rows + 1)):
+        sf = loop_boxes(rng, LOOP_B, MATCH_KS_CAP, grid=True)
+        y = np.ascontiguousarray(sf[:, rng.integers(0, MATCH_KS_CAP, ky)])
+        y += rng.normal(0, 4, (LOOP_B, ky, 4)).astype(np.float32)
+        match_cases[name] = (y, rng.random((LOOP_B, ky)) < 0.8, sf, rng.random((LOOP_B, MATCH_KS_CAP)) < 0.8, 0.5)
     return nms_cases, match_cases
 
 
@@ -685,14 +714,20 @@ def dependent_steps(valid) -> int:
     return int(valid.sum(1).max().item())
 
 
+def match_rows_limit(dev) -> int:
+    """greedy_match_matrix_rows at Ks = MATCH_KS_CAP on the card."""
+    return fusion_loops.greedy_match_matrix_rows(MATCH_KS_CAP, shared_memory_limit(dev))
+
+
 def phase_fusion_kernels(card):
     """Each loop entry vs its plain version on the card, bit for bit; times
-    at the served shapes, and of both soft-NMS designs at the K where the
-    wrapper switches. Returns the three kernel records (launches filled in
-    later)."""
+    at the served shapes, and of both designs of soft-NMS and of the match
+    where the wrapper switches. Returns the three kernel records (launches
+    filled in later)."""
     dev = DEVICE
-    matrix_slots = fusion_loops.soft_nms_matrix_slots(shared_memory_limit(dev))
-    nms_cases, match_cases = loop_inputs(np.random.default_rng(SEED + 5), matrix_slots)
+    smem = shared_memory_limit(dev)
+    matrix_slots = fusion_loops.soft_nms_matrix_slots(smem)
+    nms_cases, match_cases = loop_inputs(np.random.default_rng(SEED + 5), matrix_slots, match_rows_limit(dev))
     checks = {}
     for name, arrays in nms_cases.items():
         boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in arrays)
@@ -716,17 +751,30 @@ def phase_fusion_kernels(card):
                         "suppressed": int((svalid & ~keep).sum().item()),
                         "soft_survivors": int(surv.sum().item()),
                         "soft_design": "decay matrix" if k <= matrix_slots else "block"}
-    for name, arrays in match_cases.items():
+    for name, (*arrays, thr) in match_cases.items():
         y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in arrays)
-        idx, m = fusion_loops.greedy_match(y, yv, sf, sv, 0.5)
-        idx_plain, m_plain = fusion_loops.greedy_match_plain(y, yv, sf, sv, 0.5)
-        torch.cuda.synchronize()
-        if not (torch.equal(idx, idx_plain) and torch.equal(m, m_plain)):
-            raise AssertionError(f"greedy_match disagrees with its plain version on {name}")
-        checks[f"match_{name}"] = {"shape": [list(y.shape[:2]), list(sf.shape[:2])],
-                                   "matches": int((idx >= 0).sum().item())}
+        idx_plain, m_plain = fusion_loops.greedy_match_plain(y, yv, sf, sv, thr)
+        # the wrapper's design for the shape, then the block design on the same input
+        for got in (fusion_loops.greedy_match(y, yv, sf, sv, thr), match_block_direct(y, yv, sf, sv, thr)):
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], idx_plain) and torch.equal(got[1], m_plain)):
+                raise AssertionError(f"greedy_match disagrees with its plain version on {name}")
+        ky, ks = yv.shape[1], sv.shape[1]
+        checks[f"match_{name}"] = {
+            "shape": [list(y.shape[:2]), list(sf.shape[:2])], "threshold": thr,
+            "matches": int((idx_plain >= 0).sum().item()),
+            "candidate_rows_per_frame": fusion_loops.greedy_match_candidate_rows(y, yv, sf, sv, thr).tolist(),
+            "valid_rows_per_frame": yv.sum(1).tolist(),
+            "design": "key matrix" if ky <= fusion_loops.greedy_match_matrix_rows(ks, smem) else "block"}
     if checks["match_served_64x50"]["matches"] == 0 or checks["class_offset_256"]["suppressed"] == 0:
         raise AssertionError("the served-shape inputs exercised nothing")
+    if min(checks["match_every_row_candidate_64x50"]["candidate_rows_per_frame"]) != 64:
+        raise AssertionError("the every-row-candidate input has a row with no candidate")
+    if checks["match_no_candidate_frame"]["candidate_rows_per_frame"][3] != 0:
+        raise AssertionError("the no-candidate frame has a candidate")
+    if [c["design"] for n, c in checks.items() if n.startswith(("match_matrix_limit", "match_block_"))] != [
+            "key matrix", "block"]:
+        raise AssertionError("the match inputs beside the switch do not take both designs")
     if checks["class_offset_1024"]["suppressed"] == 0:
         raise AssertionError("the K = 1024 input suppressed nothing")
     if checks["chain_70"]["kept"] != LOOP_B * 35:
@@ -740,7 +788,7 @@ def phase_fusion_kernels(card):
     wboxes, wvalid = sorted_candidates(*(torch.from_numpy(a).to(dev)
                                          for a in nms_cases["class_offset_1024"]))
     fboxes, fscores, fvalid = (torch.from_numpy(a).to(dev) for a in nms_cases["random"])
-    y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in match_cases["served_64x50"])
+    y, yv, sf, sv = (torch.from_numpy(a).to(dev) for a in match_cases["served_64x50"][:4])
     keep = fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45)
     kept_before = torch.cumsum(keep.int(), 1) - keep.int()
     calls = {
@@ -755,11 +803,12 @@ def phase_fusion_kernels(card):
             lambda: fusion_loops.soft_nms_gaussian_plain(fboxes, fscores, fvalid),
             fboxes.numel() * 4 + fscores.numel() * 4 * 2 + 2 * fvalid.numel(),
             int((fvalid.sum(1) * (fvalid.sum(1) - 1) // 2).sum().item()), dependent_steps(fvalid)),
-        "greedy_match": (
+        "greedy_match": (  # the chain: the candidate rows of a frame
             lambda: fusion_loops.greedy_match(y, yv, sf, sv, 0.5),
             lambda: fusion_loops.greedy_match_plain(y, yv, sf, sv, 0.5),
             (y.numel() + sf.numel()) * 4 + yv.numel() * 5 + sv.numel() * 2,
-            int((yv.sum(1) * sv.sum(1)).sum().item()), int(yv.sum(1).max().item())),
+            int((yv.sum(1) * sv.sum(1)).sum().item()),
+            int(fusion_loops.greedy_match_candidate_rows(y, yv, sf, sv, 0.5).max().item())),
     }
     recs = []
     for entry, (call, plain, bytes_moved, n_iou, steps) in calls.items():
@@ -792,6 +841,16 @@ def phase_fusion_kernels(card):
             if rec["replaced_design_device_ms"] is None:
                 raise AssertionError(f"the profiler saw no {SOFT_BLOCK_KERNEL} launch")
             rec["designs_at_the_switch"] = soft_nms_switch_times(nms_cases, matrix_slots)
+        if entry == "greedy_match":
+            # the block design at the served shape, where the key matrix replaced it
+            block = lambda: match_block_direct(y, yv, sf, sv, 0.5)  # noqa: E731
+            if max_abs_err(block(), plain()) != 0:
+                raise AssertionError("greedy_match_block_kernel at the served shape differs from the plain version")
+            rec["replaced_design_device_ms"] = device_ms(block, kernel=MATCH_BLOCK_KERNEL)
+            if rec["replaced_design_device_ms"] is None:
+                raise AssertionError(f"the profiler saw no {MATCH_BLOCK_KERNEL} launch")
+            rec["valid_rows"] = dependent_steps(yv)
+            rec["designs_at_the_switch"] = match_switch_times(match_cases)
         recs.append(rec)
         emit({"phase": "fusion_kernel_time", **{k: v for k, v in rec.items()
                                                  if k not in ("route", "source", "launches")},
@@ -813,6 +872,41 @@ def soft_nms_block_direct(boxes, scores, valid, sigma=0.5, score_thresh=0.001):
     if err != 0:
         raise RuntimeError(f"soft_nms_block_kernel launch failed: cudaError {err}")
     return out, surv
+
+
+def match_block_direct(yolo, yolo_valid, sfa, sfa_valid, thr):
+    """greedy_match_block_kernel at any shape, past the wrapper's choice, to
+    check and time it where the wrapper takes the key matrix. Counts no
+    launch. Returns (match_idx, sfa_matched)."""
+    b, ky = yolo_valid.shape
+    ks = sfa_valid.shape[1]
+    lib, dev = fusion_loops._cuda_launch_setup("greedy_match", max(ky, ks), (yolo, yolo_valid, sfa, sfa_valid))
+    idx, matched = yolo_valid.new_empty((b, ky), dtype=torch.int32), sfa_valid.new_empty((b, ks))
+    err = lib.greedy_match_block_cuda(
+        yolo.data_ptr(), yolo_valid.data_ptr(), sfa.data_ptr(), sfa_valid.data_ptr(), idx.data_ptr(),
+        matched.data_ptr(), b, ky, ks, thr, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"greedy_match_block_kernel launch failed: cudaError {err}")
+    return idx, matched
+
+
+def match_switch_times(match_cases):
+    """Device time of the match's two designs on either side of the Ky where
+    the wrapper switches (Ks = MATCH_KS_CAP), and of the key matrix where
+    every row is a candidate; fails unless each ran its own design."""
+    out = {}
+    for name, arrays in match_cases.items():
+        if not name.startswith(("matrix_limit", "block_", "every_row")):
+            continue
+        symbol = MATCH_BLOCK_KERNEL if name.startswith("block_") else LOOP_ENTRIES["greedy_match"][1]
+        y, yv, sf, sv = (torch.from_numpy(a).to(DEVICE) for a in arrays[:4])
+        dms = device_ms(lambda: fusion_loops.greedy_match(y, yv, sf, sv, arrays[4]), kernel=symbol)
+        if dms is None:
+            raise AssertionError(f"greedy_match at {tuple(yv.shape)} x {sv.shape[1]} launched no {symbol}")
+        steps = int(fusion_loops.greedy_match_candidate_rows(y, yv, sf, sv, arrays[4]).max().item())
+        out[name] = {"kernel": symbol, "shape": [list(yv.shape), list(sv.shape)], "device_ms": dms,
+                     "candidate_rows": steps, "valid_rows": dependent_steps(yv)}
+    return out
 
 
 def soft_nms_switch_times(nms_cases, matrix_slots):
@@ -1049,12 +1143,23 @@ def phase_fused_serve(card):
     # mean to either side of that integer, so the path after the networks is
     # held exact on equal inputs. `all_cpu` counts the replies that the CPU
     # path also gives from its own networks.
-    per_reply, net_errs, all_cpu = [], [], 0
+    # The replay records each frame's match: its candidate rows (the chain's
+    # length on the card) and valid YOLO rows, from the same inputs.
+    per_reply, net_errs, all_cpu, match_rows = [], [], 0, []
+    plain_match = fusion_loops.greedy_match_plain
+
+    def recorded_match(yolo, yolo_valid, sfa, sfa_valid, thr):
+        match_rows.append([fusion_loops.greedy_match_candidate_rows(yolo, yolo_valid, sfa, sfa_valid, thr).tolist(),
+                           yolo_valid.sum(1).tolist()])
+        return plain_match(yolo, yolo_valid, sfa, sfa_valid, thr)
+
     for i, (req, got) in enumerate(zip(reqs, replies)):
         hooks = replay_networks(cpu_fd, served_networks(calls, letterbox(req[1], CANVAS)[0]), net_errs)
+        fusion_loops.greedy_match_plain = recorded_match
         try:
             want = cpu_fd.detect(*req)
         finally:
+            fusion_loops.greedy_match_plain = plain_match
             for h in hooks:
                 h.remove()
         if not replies_equal(got, want):
@@ -1116,6 +1221,8 @@ def phase_fused_serve(card):
           "replies_equal_to_cpu_given_served_networks": len(reqs),
           "replies_equal_to_all_cpu_path": all_cpu, "network_max_abs_err": max(net_errs),
           "rows_by_source_per_reply": per_reply,
+          "match_candidate_rows_per_frame": [c for rec in match_rows for c in rec[0]],
+          "match_valid_yolo_rows_per_frame": [v for rec in match_rows for v in rec[1]],
           "traffic_seconds": traffic_s, "serve_seconds_with_warmup": time.perf_counter() - t0,
           "batch_ms_bucket1": lat[1], "batch_ms_bucket8": lat[8],
           "frames_per_s_bucket8": 8 / (lat[8] / 1e3), "stages_bucket8": stages,

@@ -14,15 +14,13 @@
 // but the K steps depend on each other: step i reads what steps < i decided.
 // So the floor is the launch plus a chain of K dependent steps per frame,
 // and the cost of a step is the latency of its longest chain of dependent
-// instructions. The two NMS kernels take everything that does not depend on
+// instructions. All three kernels take everything that does not depend on
 // an earlier step out of that chain. Phase 1 computes it, in parallel, into
-// shared memory: one frame is a cluster of kCluster blocks (thread block
+// shared memory: one frame is a cluster of four blocks (thread block
 // clusters), whose warps share the rows and write them into the first
 // block's shared memory (distributed shared memory), so a batch of 8 frames
-// spreads phase 1 over 32 SMs, not 8. Phase 2, in that block, runs the chain
-// in one warp with its state in registers and no block barrier. The match
-// keeps the first design: each step recomputes a row of IoUs and takes a
-// block-wide argmax (two __syncthreads).
+// spreads phase 1 over 32 SMs, not 8. Phase 2, in that block, runs the
+// chain in one warp with its state in registers and no block barrier.
 //
 // hard_nms_keep, K <= 1024, one design.
 //   Phase 1: the suppression bitmask. Word w of row i has bit b set when slot
@@ -66,6 +64,46 @@
 //   thread per slot, each step a two-level block argmax and a recomputed
 //   IoU. The wrapper (ops/fusion_loops.py) picks the design by K.
 //
+// greedy_match, matrix design, Ks <= 256 and Ky <= greedy_match_matrix_rows
+// (890 at Ks = 50, 225 at Ks = 256 on an H100; the wrapper computes it from
+// the card's limit).
+//   Phase 1: the key matrix. key[i][j] is the float bits of iou(yolo i,
+//   sfa j) (in that argument order, as the plain version takes it) when
+//   both are valid, the IoU is > 0 and >= thr, else 0. One warp
+//   builds row i (lane l: columns l + 32 q, their extents held in
+//   registers), skips the division where the boxes do not overlap, and
+//   flags the row when a key is not 0. A row with no candidate gets -1
+//   there and then, off the chain.
+//   Why that is the plain step, bit for bit: a candidate IoU is a positive
+//   float, whose bits order as unsigned integers, and 0 lies below every
+//   candidate. If the reference's row maximum v (over unmatched columns,
+//   invalid pairs at -1) passes ">= thr and > 0", every entry equal to v is
+//   a candidate, so the lowest index holding the top key is the lowest
+//   index holding v; if v fails, no entry can be a candidate (it would be
+//   larger than v), and the top key is 0. Boxes are taken as finite, as
+//   the block design takes them.
+//   Phase 2: the candidate rows in order (a ballot and a popcount prefix
+//   per 32 rows), then one warp walks them: lane l holds columns l + 32 q,
+//   the matched flags a register bitmask. A step zeroes the keys of matched
+//   columns, takes the lane's best as a tree (the lower index on ties), the
+//   warp's top key with __reduce_max_sync and the first column holding it
+//   with __reduce_min_sync, and sets the winner's bit unless the top key is
+//   0. The next row's keys are loaded during the step (off the chain); the
+//   results wait in shared memory and go out after the chain.
+//   Phase 1 runs on a cluster of kCluster = 4 blocks per frame, as in the
+//   NMS kernels. Measured against clusters of 1 and 2 (a trial build of
+//   scripts/torch_loop_phases.py; H100 80GB HBM3, 700 W), device time for
+//   1 / 2 / 4 blocks: 6.81 / 5.87 / 5.37 us at 8 x 64 x 50 (tied IoUs),
+//   9.72 / 8.60 / 8.00 us when every row is a candidate, 41.9 / 34.0 / 32.0
+//   us at 8 x 225 x 256; one block with no cluster tied four at 64 x 50
+//   (5.52 / 5.49 us) and lost at 225 x 256 (49.4 / 32.1 us). Four blocks
+//   win where phase 1 grows and tie or win elsewhere.
+//   Shared memory: Ky rows of 32 ceil(Ks / 32) keys, the candidate list,
+//   the results and the row flags: 16,704 B at the served 64 x 50.
+// greedy_match, block design, for a larger Ks or Ky (<= 1024): one block,
+//   one thread per SFA box, each YOLO row a step of recomputed IoUs and a
+//   two-level block argmax. The wrapper picks the design by shape.
+//
 // Bit parity with the plain PyTorch versions (sfa3d_tpu_torch/ops/
 // fusion_loops.py): the IoU repeats fusion/iou.py's float32 steps with
 // __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn, so nvcc cannot contract a
@@ -91,15 +129,16 @@ constexpr int kWarp = 32;
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxWarps = kMaxThreads / kWarp;
 constexpr int kMaxWords = 32;             // valid words: 1024 slots
-constexpr int kCluster = 4;               // blocks per frame in the NMS kernels' phase 1
+constexpr int kCluster = 4;               // blocks per frame in phase 1
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kKeyNegInf = 0x007fffffu;  // score_key(-INFINITY)
 constexpr uint32_t kKeyPosInf = 0xff800000u;  // score_key(+INFINITY)
 
 // Phase stamps for scripts/torch_loop_phases.py, compiled in only with
-// -DFUSION_LOOPS_PHASE_STAMPS: thread 0 of each block of the two NMS
-// kernels records clock64() at the start (0), after loading the frame (1),
-// after phase 1 (2) and after phase 2 (3, the first block of a cluster).
+// -DFUSION_LOOPS_PHASE_STAMPS: thread 0 of each block of the NMS kernels and
+// the match's matrix kernel records clock64() at the start (0), after
+// loading the frame (1), after phase 1 (2; the match: after its candidate
+// list too) and after phase 2 (3, the first block of a cluster).
 #ifdef FUSION_LOOPS_PHASE_STAMPS
 constexpr int kStampBlocks = 4096;
 __device__ long long g_phase_stamps[kStampBlocks * 4];
@@ -519,17 +558,151 @@ __global__ void soft_nms_block_kernel(const float* __restrict__ boxes,
   }
 }
 
-// grid (batch), block >= max(ks, 32) threads, ky <= 1024. YOLO rows scanned
-// in order; row i claims the unmatched SFA box with the largest IoU (first
-// index on ties) when that IoU is >= thr and > 0. The YOLO rows and their
-// flags sit in shared memory, thread j owns SFA box j.
-__global__ void greedy_match_kernel(const float* __restrict__ yolo_boxes,
-                                    const uint8_t* __restrict__ yolo_valid,
-                                    const float* __restrict__ sfa_boxes,
-                                    const uint8_t* __restrict__ sfa_valid,
-                                    int32_t* __restrict__ match_idx,
-                                    uint8_t* __restrict__ sfa_matched, int32_t ky, int32_t ks,
-                                    float thr) {
+// grid (batch * kCluster) in clusters of kCluster blocks, one cluster per
+// frame; block match_threads(ky) threads; ks <= 32 kSlots. YOLO
+// rows scanned in order; row i claims the unmatched SFA box with the
+// largest IoU (first index on ties) when that IoU is >= thr and > 0.
+// Dynamic shared memory: greedy_match_matrix_smem(ky, kSlots) in every
+// block; the keys, list and flags are built in the first block's, through
+// distributed shared memory.
+template <int kSlots>
+__global__ void __launch_bounds__(kMaxThreads)
+    greedy_match_kernel(const float* __restrict__ yolo_boxes,
+                        const uint8_t* __restrict__ yolo_valid,
+                        const float* __restrict__ sfa_boxes,
+                        const uint8_t* __restrict__ sfa_valid, int32_t* __restrict__ match_idx,
+                        uint8_t* __restrict__ sfa_matched, int32_t ky, int32_t ks, float thr) {
+  constexpr int kRow = kSlots * kWarp;  // keys per row: columns past ks hold 0
+  extern __shared__ float4 smem4[];
+  uint32_t* skeys = reinterpret_cast<uint32_t*>(smem4);                 // ky x kRow keys
+  int16_t* slist = reinterpret_cast<int16_t*>(skeys + ky * kRow);        // candidate rows
+  int16_t* sres = slist + ky;                                           // their matches
+  uint8_t* scand = reinterpret_cast<uint8_t*>(sres + ky);                // row i is a candidate
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int blocks = static_cast<int>(cluster.num_blocks());
+  uint32_t* lead_keys = cluster.map_shared_rank(skeys, 0);
+  uint8_t* lead_cand = cluster.map_shared_rank(scand, 0);
+  const int64_t f = blockIdx.x / blocks;
+  PHASE_STAMP(0)
+  // the lane's SFA columns j = lane + 32 q as extents (invalid ones and
+  // those past ks never overlap: their bit of col_ok is 0)
+  Extent col[kSlots];
+  uint32_t col_ok = 0;
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = q * kWarp + lane;
+    col[q] = Extent{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (j < ks) {
+      col[q] = extent_of(load_box(sfa_boxes + (f * ks + j) * 4));
+      col_ok |= static_cast<uint32_t>(sfa_valid[f * ks + j] != 0) << q;
+    }
+  }
+  cluster.sync();  // every block runs before any writes into the first block
+  PHASE_STAMP(1)
+
+  // phase 1: one warp per YOLO row, the rows dealt round the cluster's
+  // warps; a row with no candidate gets -1 here
+  for (int i = rank * warps + warp; i < ky; i += blocks * warps) {
+    uint32_t any = 0;
+    if (yolo_valid[f * ky + i]) {  // the same branch for the whole warp
+      const Extent row = extent_of(load_box(yolo_boxes + (f * ky + i) * 4));
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) {
+        const float inter = intersection(row, col[q]);
+        uint32_t key = 0;
+        if (((col_ok >> q) & 1u) && inter > 0.0f) {
+          const float v = iou_given(row, col[q], inter);
+          key = v >= thr && v > 0.0f ? __float_as_uint(v) : 0u;
+        }
+        lead_keys[i * kRow + q * kWarp + lane] = key;
+        any |= key;
+      }
+    }
+    any = __any_sync(kFull, any != 0);
+    if (lane == 0) {
+      lead_cand[i] = any;
+      if (!any) match_idx[f * ky + i] = -1;
+    }
+  }
+  cluster.sync();
+  if (rank != 0 || warp != 0) return;
+
+  // the candidate rows in order: a ballot and a popcount prefix per 32 rows
+  int n = 0;
+  for (int w = 0; w * kWarp < ky; ++w) {
+    const int i = w * kWarp + lane;
+    const bool c = i < ky && scand[i];
+    const uint32_t bits = __ballot_sync(kFull, c);
+    if (c) slist[n + __popc(bits & ((1u << lane) - 1u))] = static_cast<int16_t>(i);
+    n += __popc(bits);
+  }
+  __syncwarp();
+  PHASE_STAMP(2)
+
+  // phase 2: one warp walks the candidate rows; bit q of `matched`: column
+  // lane + 32 q is taken. The next row's keys load during the step.
+  uint32_t matched = 0;
+  uint32_t next[kSlots];
+  const uint32_t* keys_of_lane = skeys + lane;
+  if (n > 0) {
+    const uint32_t* row = keys_of_lane + slist[0] * kRow;
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) next[q] = row[q * kWarp];
+  }
+  for (int t = 0; t < n; ++t) {
+    uint32_t key[kSlots], at[kSlots];
+#pragma unroll
+    for (int q = 0; q < kSlots; ++q) {
+      key[q] = ((matched >> q) & 1u) ? 0u : next[q];
+      at[q] = q * kWarp + lane;
+    }
+    if (t + 1 < n) {
+      const uint32_t* row = keys_of_lane + slist[t + 1] * kRow;
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) next[q] = row[q * kWarp];
+    }
+    // the lane's best column, as a tree: on ties the left one, of lower index
+#pragma unroll
+    for (int stride = 1; stride < kSlots; stride *= 2) {
+#pragma unroll
+      for (int q = 0; q + stride < kSlots; q += 2 * stride) {
+        const bool right = key[q + stride] > key[q];
+        key[q] = right ? key[q + stride] : key[q];
+        at[q] = right ? at[q + stride] : at[q];
+      }
+    }
+    const uint32_t top = __reduce_max_sync(kFull, key[0]);
+    const uint32_t jm = __reduce_min_sync(kFull, key[0] == top ? at[0] : kFull);
+    const bool ok = top != 0u;  // 0: every candidate of the row is taken
+    matched |= static_cast<uint32_t>(ok && lane == static_cast<int>(jm % kWarp)) << (jm / kWarp);
+    if (lane == 0) sres[t] = static_cast<int16_t>(ok ? static_cast<int>(jm) : -1);
+  }
+  __syncwarp();
+  for (int t = lane; t < n; t += kWarp) match_idx[f * ky + slist[t]] = sres[t];
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const int j = q * kWarp + lane;
+    if (j < ks) sfa_matched[f * ks + j] = (matched >> q) & 1u;
+  }
+  PHASE_STAMP(3)
+}
+
+// grid (batch), block >= max(ks, 32) threads, ky <= 1024: the block design
+// for a shape whose key matrix does not fit. YOLO rows scanned in order,
+// as above. The YOLO rows and their flags sit in shared memory, thread j
+// owns SFA box j; each step recomputes a row of IoUs and takes a block
+// argmax.
+__global__ void greedy_match_block_kernel(const float* __restrict__ yolo_boxes,
+                                          const uint8_t* __restrict__ yolo_valid,
+                                          const float* __restrict__ sfa_boxes,
+                                          const uint8_t* __restrict__ sfa_valid,
+                                          int32_t* __restrict__ match_idx,
+                                          uint8_t* __restrict__ sfa_matched, int32_t ky,
+                                          int32_t ks, float thr) {
   extern __shared__ float4 sbox[];  // the frame's ky YOLO boxes
   __shared__ uint8_t svalid[kMaxThreads];
   __shared__ float wv[kMaxWarps];
@@ -589,6 +762,18 @@ size_t soft_nms_matrix_smem(int32_t k) {
          static_cast<size_t>(k) * sizeof(float4);
 }
 
+// Per YOLO row: 32 kSlots keys, its place in the candidate list, its
+// result (both int16) and its flag.
+size_t greedy_match_matrix_smem(int32_t ky, int slots) {
+  return static_cast<size_t>(ky) * (kWarp * 4 * slots + 5);
+}
+
+// One warp per YOLO row of the block's share in phase 1, at least one warp.
+int match_threads(int32_t ky) {
+  const int rows = (ky + kCluster - 1) / kCluster;
+  return rows >= kMaxWarps ? kMaxThreads : (rows < 1 ? kWarp : rows * kWarp);
+}
+
 // Runs `launch_fn` (which launches and returns a cudaError_t from any set-up
 // call) with `device` current; the caller's device is restored afterwards.
 // Returns the first CUDA error (0 on success).
@@ -643,6 +828,18 @@ cudaError_t launch_soft_matrix(const void* boxes, const void* scores, const void
                             static_cast<const float*>(scores), static_cast<const uint8_t*>(valid),
                             static_cast<float*>(out_scores), static_cast<uint8_t*>(surv), k,
                             inv_sigma, score_thresh);
+}
+
+template <int kSlots>
+cudaError_t launch_match_matrix(const void* yolo_boxes, const void* yolo_valid,
+                                const void* sfa_boxes, const void* sfa_valid, void* match_idx,
+                                void* sfa_matched, int64_t batch, int32_t ky, int32_t ks,
+                                float thr, void* stream) {
+  return launch_in_clusters(
+      greedy_match_kernel<kSlots>, batch, match_threads(ky), greedy_match_matrix_smem(ky, kSlots),
+      stream, static_cast<const float*>(yolo_boxes), static_cast<const uint8_t*>(yolo_valid),
+      static_cast<const float*>(sfa_boxes), static_cast<const uint8_t*>(sfa_valid),
+      static_cast<int32_t*>(match_idx), static_cast<uint8_t*>(sfa_matched), ky, ks, thr);
 }
 
 }  // namespace
@@ -720,17 +917,46 @@ extern "C" int soft_nms_gaussian_block_cuda(const void* boxes, const void* score
   });
 }
 
-// yolo_boxes (batch, ky, 4), yolo_valid (batch, ky), sfa_boxes (batch, ks, 4),
-// sfa_valid (batch, ks) -> match_idx (batch, ky) int32, sfa_matched
-// (batch, ks) bool; 0 <= ky <= 1024, 1 <= ks <= 1024.
+// The matrix design. yolo_boxes (batch, ky, 4), yolo_valid (batch, ky),
+// sfa_boxes (batch, ks, 4), sfa_valid (batch, ks) -> match_idx (batch, ky)
+// int32, sfa_matched (batch, ks) bool; 0 <= ky, 1 <= ks <= 256 and
+// greedy_match_matrix_smem(ky, ceil(ks / 32)) within the block's limit (the
+// wrapper's greedy_match_matrix_rows).
 extern "C" int greedy_match_cuda(const void* yolo_boxes, const void* yolo_valid,
                                  const void* sfa_boxes, const void* sfa_valid, void* match_idx,
                                  void* sfa_matched, int64_t batch, int32_t ky, int32_t ks,
                                  float thr, int32_t device, void* stream) {
   return on_device(device, [&] {
-    greedy_match_kernel<<<static_cast<unsigned int>(batch), threads_for(ks),
-                          static_cast<size_t>(ky) * sizeof(float4),
-                          static_cast<cudaStream_t>(stream)>>>(
+    switch ((ks + kWarp - 1) / kWarp) {
+#define MATCH_CASE(n)                                                                        \
+  case n:                                                                                    \
+    return launch_match_matrix<n>(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid, match_idx, \
+                                  sfa_matched, batch, ky, ks, thr, stream);
+      MATCH_CASE(1)
+      MATCH_CASE(2)
+      MATCH_CASE(3)
+      MATCH_CASE(4)
+      MATCH_CASE(5)
+      MATCH_CASE(6)
+      MATCH_CASE(7)
+      MATCH_CASE(8)
+#undef MATCH_CASE
+      default:
+        return cudaErrorInvalidValue;
+    }
+  });
+}
+
+// The block design, same arguments; 0 <= ky <= 1024, 1 <= ks <= 1024.
+extern "C" int greedy_match_block_cuda(const void* yolo_boxes, const void* yolo_valid,
+                                       const void* sfa_boxes, const void* sfa_valid,
+                                       void* match_idx, void* sfa_matched, int64_t batch,
+                                       int32_t ky, int32_t ks, float thr, int32_t device,
+                                       void* stream) {
+  return on_device(device, [&] {
+    greedy_match_block_kernel<<<static_cast<unsigned int>(batch), threads_for(ks),
+                                static_cast<size_t>(ky) * sizeof(float4),
+                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(yolo_boxes), static_cast<const uint8_t*>(yolo_valid),
         static_cast<const float*>(sfa_boxes), static_cast<const uint8_t*>(sfa_valid),
         static_cast<int32_t*>(match_idx), static_cast<uint8_t*>(sfa_matched), ky, ks, thr);

@@ -14,19 +14,21 @@ entry here is one launch per batch.
   greedy_match       (B, Ky, 4) + (B, Ky) valid, (B, Ks, 4) + (B, Ks) valid
                      -> match_idx (B, Ky) int32 (-1: none), sfa_matched (B, Ks)
 
-The two NMS kernels compute what does not depend on an earlier step first,
-with a cluster of blocks per frame, into shared memory (hard NMS: the
-suppression bitmask; soft-NMS: the decay of every pair), then run the K
-dependent steps in one warp. Soft-NMS has two designs, chosen here by K: the
-decay matrix needs K * K floats of shared memory, so up to
-`soft_nms_matrix_slots` of the card's limit (239 on an H100) the matrix
-kernel runs, and above it a block kernel with one thread per slot that
-recomputes a row of IoUs per step. The match is one block per frame.
+Each kernel computes what does not depend on an earlier step first, in
+parallel, into shared memory (hard NMS: the suppression bitmask; soft-NMS:
+the decay of every pair; the match: a key per pair that is 0 unless the
+pair can match), then runs the dependent steps in one warp (the match: only
+the YOLO rows that have a candidate). Soft-NMS and the match have two
+designs each, chosen here by shape against the card's shared memory: up to
+`soft_nms_matrix_slots` (239 on an H100) the decay-matrix kernel runs, and
+while Ky <= `greedy_match_matrix_rows(Ks)` the key-matrix kernel; above
+that, a block kernel with one thread per slot that recomputes a row of IoUs
+and takes a block argmax per step.
 
 Each entry launches a kernel for CUDA tensors (or raises) and takes its
 plain version (`*_plain`: a Python loop over the K steps, vectorised over
 frames) only for tensors on the CPU. Each keeps a `launches` counter (both
-soft-NMS designs count under `soft_nms_gaussian.launches`). A frame holds
+designs of an entry count under its one counter). A frame holds
 at most 1024 slots (the K of hard NMS and soft-NMS, Ky and Ks of the
 match); the wrappers raise above that.
 """
@@ -43,10 +45,11 @@ from sfa3d_tpu_torch._build import finish_launch, load_library
 from sfa3d_tpu_torch.fusion.iou import pairwise_iou_xywh
 
 MAX_SLOTS = 1024  # slots per frame: one per thread of a block, 32 words of 32 bits
-MATRIX_SLOTS_PER_LANE = 8  # the soft-NMS matrix kernel's registers: K <= 256
+MATRIX_SLOTS_PER_LANE = 8  # the matrix kernels' registers: soft-NMS K, match Ks <= 256
 
 _c_ptr, _c_i32, _c_i64, _c_f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
 _SOFT_NMS_ARGS = (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_f32, _c_f32, _c_i32, _c_ptr)
+_MATCH_ARGS = (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_i32, _c_f32, _c_i32, _c_ptr)
 _SIGNATURES = {
     "fusion_smem_limit": (ctypes.c_int, (_c_i32, ctypes.POINTER(_c_i32))),
     "hard_nms_keep_cuda": (
@@ -54,13 +57,10 @@ _SIGNATURES = {
     ),
     "soft_nms_gaussian_cuda": (ctypes.c_int, _SOFT_NMS_ARGS),  # the matrix design
     "soft_nms_gaussian_block_cuda": (ctypes.c_int, _SOFT_NMS_ARGS),
-    "greedy_match_cuda": (
-        ctypes.c_int,
-        (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i32, _c_i32, _c_f32,
-         _c_i32, _c_ptr),
-    ),
+    "greedy_match_cuda": (ctypes.c_int, _MATCH_ARGS),  # the matrix design
+    "greedy_match_block_cuda": (ctypes.c_int, _MATCH_ARGS),
 }
-_matrix_slots = {}  # device index -> soft_nms_matrix_slots of its shared memory
+_smem_limits = {}  # device index -> the dynamic shared memory a block may opt in to
 
 
 def inv_sigma(sigma: float) -> float:
@@ -97,17 +97,17 @@ def _cuda_launch_setup(name: str, slots: int, tensors) -> Tuple[ctypes.CDLL, tor
     return load_library("fusion_loops", _SIGNATURES), dev
 
 
-def _device_matrix_slots(lib: ctypes.CDLL, dev: torch.device) -> int:
-    """soft_nms_matrix_slots of the shared memory a block may use on `dev`,
-    asked of the library once per device."""
-    slots = _matrix_slots.get(dev.index)
-    if slots is None:
+def _device_smem_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
+    """The dynamic shared memory a block may opt in to on `dev`, asked of
+    the library once per device."""
+    limit = _smem_limits.get(dev.index)
+    if limit is None:
         v = _c_i32(0)
         err = lib.fusion_smem_limit(dev.index, ctypes.byref(v))
         if err != 0:
             raise RuntimeError(f"cudaDeviceGetAttribute failed on {dev}: cudaError {err}")
-        slots = _matrix_slots[dev.index] = soft_nms_matrix_slots(v.value)
-    return slots
+        limit = _smem_limits[dev.index] = v.value
+    return limit
 
 
 def soft_nms_matrix_smem(k: int) -> int:
@@ -124,6 +124,23 @@ def soft_nms_matrix_slots(smem_limit: int) -> int:
     while k > 0 and soft_nms_matrix_smem(k) > smem_limit:
         k -= 1
     return k
+
+
+def greedy_match_matrix_smem(ky: int, ks: int) -> int:
+    """Bytes of shared memory the match's matrix kernel takes: per YOLO row,
+    32 * ceil(Ks / 32) keys, its place in the candidate list and its result
+    (int16 each) and its flag."""
+    return ky * (128 * -(-ks // 32) + 5)
+
+
+def greedy_match_matrix_rows(ks: int, smem_limit: int) -> int:
+    """The largest Ky (at most MAX_SLOTS) whose match key matrix fits
+    `smem_limit` bytes of shared memory at Ks SFA slots; 0 above Ks = 32 *
+    MATRIX_SLOTS_PER_LANE. At an H100's 232,448: 890 at Ks = 50, 225 at
+    Ks = 256."""
+    if ks > 32 * MATRIX_SLOTS_PER_LANE:
+        return 0
+    return min(MAX_SLOTS, smem_limit // greedy_match_matrix_smem(1, ks))
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +232,7 @@ def soft_nms_gaussian(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Te
     surv = valid.new_empty((b, k))
     if b == 0 or k == 0:
         return out, surv
-    matrix = k <= _device_matrix_slots(lib, dev)
+    matrix = k <= soft_nms_matrix_slots(_device_smem_limit(lib, dev))
     launch = lib.soft_nms_gaussian_cuda if matrix else lib.soft_nms_gaussian_block_cuda
     err = launch(
         boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(), out.data_ptr(), surv.data_ptr(),
@@ -255,12 +272,25 @@ def greedy_match_plain(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
     return match_idx, sfa_matched
 
 
+def greedy_match_candidate_rows(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
+                                sfa_boxes: torch.Tensor, sfa_valid: torch.Tensor,
+                                iou_threshold: float) -> torch.Tensor:
+    """(B,) int64: the YOLO rows of each frame that have a candidate, a valid
+    SFA box whose IoU is >= iou_threshold and > 0 (the rows the matrix
+    kernel's chain walks; every other row matches nothing)."""
+    iou = pairwise_iou_xywh(yolo_boxes, sfa_boxes)
+    pair = yolo_valid[:, :, None] & sfa_valid[:, None, :] & (iou >= iou_threshold) & (iou > 0)
+    return pair.any(2).sum(1)
+
+
 def greedy_match(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
                  sfa_boxes: torch.Tensor, sfa_valid: torch.Tensor, iou_threshold: float):
     """(B, Ky, 4) + (B, Ky) YOLO boxes and valid, (B, Ks, 4) + (B, Ks) SFA
     boxes and valid -> (match_idx (B, Ky) int32, index into the SFA boxes or
-    -1; sfa_matched (B, Ks) bool). CUDA tensors launch `greedy_match_kernel`
-    (one launch); CPU tensors take `greedy_match_plain`."""
+    -1; sfa_matched (B, Ks) bool). CUDA tensors launch one kernel:
+    `greedy_match_kernel` (the key matrix) when Ky <=
+    `greedy_match_matrix_rows(Ks)` of the card's shared memory, else
+    `greedy_match_block_kernel`. CPU tensors take `greedy_match_plain`."""
     _check_set(yolo_boxes, yolo_valid, what="greedy_match")
     _check_set(sfa_boxes, sfa_valid, what="greedy_match")
     if yolo_boxes.shape[0] != sfa_boxes.shape[0]:
@@ -278,7 +308,9 @@ def greedy_match(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
     sfa_matched = sfa_valid.new_empty((b, ks))
     if b == 0:
         return match_idx, sfa_matched
-    err = lib.greedy_match_cuda(
+    matrix = ky <= greedy_match_matrix_rows(ks, _device_smem_limit(lib, dev))
+    launch = lib.greedy_match_cuda if matrix else lib.greedy_match_block_cuda
+    err = launch(
         yolo_boxes.data_ptr(), yolo_valid.data_ptr(), sfa_boxes.data_ptr(), sfa_valid.data_ptr(),
         match_idx.data_ptr(), sfa_matched.data_ptr(), b, ky, ks, iou_threshold,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,

@@ -165,7 +165,7 @@ def _fake_fusion_lib(refuse):
 
     return SimpleNamespace(fusion_smem_limit=smem_limit, hard_nms_keep_cuda=refuse,
                            soft_nms_gaussian_cuda=refuse, soft_nms_gaussian_block_cuda=refuse,
-                           greedy_match_cuda=refuse)
+                           greedy_match_cuda=refuse, greedy_match_block_cuda=refuse)
 
 
 @pytest.mark.parametrize("entry", ["hard_nms_keep", "soft_nms_gaussian", "greedy_match"])
@@ -182,7 +182,7 @@ def test_fusion_loop_failed_launch_raises_never_falls_back(monkeypatch, entry):
 
     monkeypatch.setattr(fusion_loops, "load_library",
                         lambda name, signatures: _fake_fusion_lib(lambda *a: 98))
-    monkeypatch.setattr(fusion_loops, "_matrix_slots", {})
+    monkeypatch.setattr(fusion_loops, "_smem_limits", {})
     monkeypatch.setattr(fusion_loops, f"{entry}_plain", plain)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
     cuda = lambda t: torch.Tensor._make_subclass(_CudaTyped, t)  # noqa: E731
