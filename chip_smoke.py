@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths on
-one NVIDIA GPU and check them.
+"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths
+and its training path on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -58,6 +58,26 @@ Phases, each printing one JSON line:
           CPU networks' own outputs lie within 1e-3 of those; the replies
           hold YOLO, SFA and at least 16 fused rows; the match's candidate
           rows per frame. Per-batch ms at buckets 1 and 8 and a stage split
+  train   first one strict-fp32 accumulated step (S = 2 x B = 2 frames,
+          128 x 128 raster, deterministic cuDNN) of the same model and batch
+          on the card and the CPU, SGD then Adam: loss, every parameter and
+          every BatchNorm statistic within the tolerances printed on the
+          train_tolerance line. Then the full width through the entry points
+          a user calls: the CLI's parser and defaults (fpn_resnet_18 on the
+          608 x 608 raster, batch 16, effective batch 64, so S = 4),
+          create_train_loader over a synthetic mini-KITTI of 64 frames with
+          augmentation and hflip, create_optimizer, create_train_state,
+          make_train_step: 5 steps in float32 and 3 in the bfloat16 default
+          (CUDA-event ms per step, frames/s end to end with the loader's
+          wait and on the device alone, peak memory), every loss finite,
+          bev_raster_reduce launched once per collated batch; 8 Adam steps
+          on one fixed batch lower its loss; one collated batch of 64
+          frames (hflip as drawn) through the raster kernel against its
+          plain version on the card, and through prepare_train_batch
+          against the CPU route (raster channels 0 and 1 and the integer
+          targets bit-exact); one epoch of the training CLI, whose
+          checkpoint Detector loads, and its validation batches (16, 16 and
+          a tail of 8 frames) on the card against the CPU route
 Then one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -72,6 +92,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1230,6 +1251,320 @@ def phase_fused_serve(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the training path
+# ---------------------------------------------------------------------------
+
+TRAIN_PARITY_BEV = (128, 128)  # GPU vs CPU step: raster, and heatmap 32 x 32
+TRAIN_FRAMES = 64  # the synthetic mini-KITTI: one batch of S x B = 4 x 16 an epoch
+TRAIN_VAL_FRAMES = 40  # its val split: batches of 16, 16 and a tail of 8
+TRAIN_DEFAULTS = (16, 4, "bfloat16")  # the CLI's batch_size, effective_batch // batch_size, compute_dtype
+TRAIN_LOSS_RTOL = 1e-5  # loss terms GPU vs CPU, one strict-fp32 step
+TRAIN_STAT_RTOL = 1e-4  # BatchNorm statistics, of each tensor's largest
+TRAIN_PARAM_SHARE = 1e-2  # parameters, of the step's largest parameter change
+TRAIN_GRAD_FLOOR = 1e-3  # Adam: elements whose |grad| is under this share of their tensor's largest are excused
+TARGET_RTOL = 1e-6  # float training targets GPU vs CPU, of each tensor's largest (exp, sin, cos: libm ulps)
+
+
+def _check_targets(got, want):
+    """Training targets of the card against the CPU route's: indices and
+    masks bit-exact, floats within TARGET_RTOL of each tensor's largest;
+    returns the largest float error by key."""
+    errs = {}
+    for k, v in want.items():
+        g = got[k].cpu()
+        if k in ("indices_center", "obj_mask"):
+            if not torch.equal(g, v):
+                raise AssertionError(f"training target {k} differs between the card and the CPU")
+            continue
+        errs[k] = (g - v).abs().max().item()
+        if errs[k] > TARGET_RTOL * max(v.abs().max().item(), 1e-30):
+            raise AssertionError(f"training target {k} differs between the card and the CPU by {errs[k]}")
+    return errs
+
+
+def _train_batch_from_scenes(seeds, dev, bev_size, hm_size, s):
+    """S x B synthetic scenes through prepare_train_batch on `dev`."""
+    from sfa3d_tpu_torch.data.loader import prepare_train_batch
+    from sfa3d_tpu_torch.data.synthetic import synthetic_scene
+
+    pts = np.zeros((len(seeds), N, 4), np.float32)
+    valid = np.zeros((len(seeds), N), bool)
+    labels = np.zeros((len(seeds), 50, 8), np.float32)
+    n_lab = np.zeros(len(seeds), np.int32)
+    for i, sd in enumerate(seeds):
+        scan, lab = synthetic_scene(sd)
+        pts[i], valid[i] = bev_ops.filter_and_pad_points(scan, N)
+        labels[i, :len(lab)], n_lab[i] = lab, len(lab)
+    hflip = np.arange(len(seeds)) % 2 == 1
+    bev, tg = prepare_train_batch(*(torch.from_numpy(a).to(dev) for a in (pts, valid, labels, n_lab, hflip)),
+                                  bev_size=bev_size, hm_size=hm_size)
+    b = len(seeds) // s
+    return {"bev": bev.reshape(s, b, *bev.shape[1:]), "targets": {k: v.reshape(s, b, *v.shape[1:]) for k, v in tg.items()}}
+
+
+def _train_model(init_sd):
+    """KFPN-18 with the weights `init_sd` (one init_weights draw, which takes
+    seconds on the host, shared by the train phase's models)."""
+    model = create_model("fpn_resnet_18")
+    model.load_state_dict(init_sd)
+    return model
+
+
+def _train_step_parity(optimizer_type, init_sd):
+    """One accumulated step (S = 2, B = 2, 128 x 128 raster) of the same
+    model and batch on the card and on the CPU, strict fp32; returns the
+    measured differences or raises."""
+    from sfa3d_tpu_torch.config.train import OptimConfig
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    lr = 1e-2 if optimizer_type == "sgd" else 1e-3
+    spec = create_optimizer(OptimConfig(optimizer_type=optimizer_type, lr=lr), num_epochs=10, steps_per_epoch=1)
+    hm = (TRAIN_PARITY_BEV[0] // 4, TRAIN_PARITY_BEV[1] // 4)
+    cpu_batch = _train_batch_from_scenes(range(40, 44), torch.device("cpu"), TRAIN_PARITY_BEV, hm, 2)
+    gpu_batch = _train_batch_from_scenes(range(40, 44), DEVICE, TRAIN_PARITY_BEV, hm, 2)
+    _check_targets(gpu_batch["targets"], cpu_batch["targets"])
+    raster_errors(gpu_batch["bev"].flatten(0, 1).cpu(), cpu_batch["bev"].flatten(0, 1))
+    cpu_model = _train_model(init_sd)
+    gpu_model = _train_model(init_sd).to(DEVICE)
+    start = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
+    out = {}
+    for name, model, batch, dev in (("cpu", cpu_model, cpu_batch, "cpu"), ("gpu", gpu_model, gpu_batch, DEVICE)):
+        state = create_train_state(model, spec)
+        _, stats = make_train_step(model, spec, device=dev)(state, batch)
+        out[name] = ({k: float(v) for k, v in stats.items()},
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     {k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+    (cs, csd, cgrad), (gs, gsd, _) = out["cpu"], out["gpu"]
+    loss_err = max(abs(gs[k] - cs[k]) / abs(cs[k]) for k in cs)
+    if not loss_err <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{optimizer_type} step: loss GPU vs CPU differs by {loss_err} relative")
+    names = set(cgrad)
+    largest_change = max((csd[k] - start[k]).abs().max().item() for k in names)
+    param_err, stat_err, excused = 0.0, 0.0, 0
+    for k, want in csd.items():
+        if k.endswith("num_batches_tracked"):
+            if not torch.equal(gsd[k], want):
+                raise AssertionError(f"{k} differs")
+            continue
+        diff = (gsd[k] - want).abs()
+        if k in names:
+            bad = diff > TRAIN_PARAM_SHARE * largest_change
+            if optimizer_type == "adam":
+                noise = cgrad[k].abs() <= TRAIN_GRAD_FLOOR * cgrad[k].abs().max()
+                excused += int((bad & noise).sum())
+                bad &= ~noise
+            if bad.any():
+                raise AssertionError(f"{optimizer_type} step: parameter {k} GPU vs CPU differs by "
+                                     f"{diff.max().item()} (largest change {largest_change})")
+            param_err = max(param_err, diff.max().item() / largest_change)
+        else:
+            rel = diff.max().item() / max(want.abs().max().item(), 1e-30)
+            if rel > TRAIN_STAT_RTOL:
+                raise AssertionError(f"{optimizer_type} step: BatchNorm statistic {k} differs by {rel} relative")
+            stat_err = max(stat_err, rel)
+    return {"loss_max_rel_err": loss_err, "param_max_err_share_of_largest_change": param_err,
+            "largest_change": largest_change, "bn_stat_max_rel_err": stat_err,
+            "adam_elements_excused_near_zero_grad": excused if optimizer_type == "adam" else None,
+            "total_loss": cs["total_loss"]}
+
+
+def _epoch_batches(loader, epochs, first_epoch=1):
+    """Every batch of `epochs` whole epochs (the threaded loader collates
+    each epoch's batches ahead; whole epochs keep the launch count exact)."""
+    for epoch in range(first_epoch, first_epoch + epochs):
+        loader.set_epoch(epoch)
+        yield from loader
+
+
+def _timed_steps(step, state, batches):
+    """Run the steps; CUDA-event ms of each, losses, the host ms spent
+    waiting on the loader, and the wall ms of each step from the end of the
+    one before (loader wait included)."""
+    ms, losses, wait, wall = [], [], [], []
+    t = time.perf_counter()
+    for batch in batches:
+        wait.append((time.perf_counter() - t) * 1e3)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_step = time.perf_counter()
+        start.record()
+        state, stats = step(state, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(stats["total_loss"]))
+        t = time.perf_counter()
+        wall.append(wait[-1] + (t - t_step) * 1e3)
+    return state, ms, losses, wait, wall
+
+
+def _prepare_checks(loader):
+    """The device preparation of one collated batch (S x B = 64 frames, the
+    training path's shape, flipped where the dataset drew hflip), held
+    against its plain versions and then timed with CUDA events. The raster
+    kernel must equal bev_raster_reduce_plain on the card, and the card's
+    prepare_train_batch (raster, flip, targets) the CPU route on the same
+    frames. Its launches come after the path's count was read."""
+    from sfa3d_tpu_torch.data.loader import prepare_train_batch
+    from sfa3d_tpu_torch.ops.targets import build_targets
+
+    samples = [loader.dataset[i] for i in range(loader.batch_size * loader.subdivisions)]
+    host = [np.stack([x.points for x in samples]), np.stack([x.valid for x in samples]),
+            np.stack([x.labels for x in samples]), np.int32([x.n_labels for x in samples]),
+            np.asarray([bool(getattr(x, "hflipped", False)) for x in samples])]
+    if not 0 < host[4].sum() < len(samples):
+        raise AssertionError(f"{host[4].sum()} of {len(samples)} frames flipped: the flip goes unchecked")
+    pts, valid, labels, n_lab, hflip = (torch.from_numpy(a).to(DEVICE) for a in host)
+    kernel_err = raster_errors(bev_ops.points_to_bev_nchw(pts, valid).cpu(),
+                               bev_raster_reduce_plain(*bev_ops.cell_indices_and_keys(pts, valid)).cpu())
+    bev, targets = prepare_train_batch(pts, valid, labels, n_lab, hflip)
+    want_bev, want_targets = prepare_train_batch(*(torch.from_numpy(a) for a in host))
+    route_err = raster_errors(bev.cpu(), want_bev)
+    target_err = _check_targets(targets, want_targets)
+    return {"frames": len(samples), "hflipped": int(host[4].sum()),
+            "raster_vs_plain_on_card_max_abs_err": kernel_err, "prepare_vs_cpu_raster_max_abs_err": route_err,
+            "prepare_vs_cpu_target_max_abs_err": target_err,
+            "prepare_train_batch_ms": cuda_ms(lambda: prepare_train_batch(pts, valid, labels, n_lab, hflip), reps=10),
+            "raster_ms": cuda_ms(lambda: bev_ops.points_to_bev_nchw(pts, valid), reps=10),
+            "build_targets_ms": cuda_ms(lambda: build_targets(labels, n_lab, hflip), reps=10)}
+
+
+def phase_train(card, tmp_root):
+    """The training path. First one strict-fp32 step GPU vs CPU (SGD, then
+    Adam, deterministic cuDNN); then the full width through the entry points
+    a user calls: the CLI's parser and defaults (fpn_resnet_18, 608 x 608,
+    batch 16, effective batch 64 -> S = 4), create_train_loader over a
+    synthetic mini-KITTI with augmentation and hflip, create_optimizer,
+    create_train_state, make_train_step: 5 steps in float32 and 3 in the
+    bfloat16 default, timed; 8 Adam steps on one fixed batch must lower its
+    loss; one epoch of the training CLI. bev_raster_reduce must launch once
+    per collated batch."""
+    import os
+
+    from sfa3d_tpu_torch.cli import train as train_cli
+    from sfa3d_tpu_torch.config.train import OptimConfig, parse_train_configs
+    from sfa3d_tpu_torch.data.loader import create_train_loader, create_val_loader
+    from sfa3d_tpu_torch.data.synthetic import write_mini_kitti
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    emit({"phase": "train_tolerance", "loss_rtol": TRAIN_LOSS_RTOL, "bn_stat_rtol_of_tensor_max": TRAIN_STAT_RTOL,
+          "param_tol_share_of_largest_change": TRAIN_PARAM_SHARE,
+          "adam_excuses_elements_with_grad_below_share_of_tensor_max": TRAIN_GRAD_FLOOR,
+          "float_target_rtol_of_tensor_max": TARGET_RTOL})
+    init_sd = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    torch.backends.cudnn.deterministic = True
+    try:
+        parity = {opt: _train_step_parity(opt, init_sd) for opt in ("sgd", "adam")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "train_parity", "bev": list(TRAIN_PARITY_BEV), "S": 2, "B": 2, **parity,
+          "card": card["nvidia_smi"]})
+
+    t0 = time.perf_counter()
+    root = write_mini_kitti(os.path.join(tmp_root, "kitti"), n_frames=TRAIN_FRAMES, seed=SEED,
+                            splits={"train": range(TRAIN_FRAMES), "val": range(TRAIN_VAL_FRAMES)})
+    write_s = time.perf_counter() - t0
+    configs = parse_train_configs(["--dataset_dir", root, "--root-dir", os.path.join(tmp_root, "run"),
+                                   "--seed", str(SEED)])
+    rt = configs.runtime
+    s = configs.optim.effective_batch // rt.batch_size
+    if (rt.batch_size, s, configs.model.compute_dtype) != TRAIN_DEFAULTS:
+        raise AssertionError(f"the CLI defaults are not batch, S, dtype = {TRAIN_DEFAULTS}")
+    loader = create_train_loader(configs, device=DEVICE)
+    model = _train_model(init_sd).to(DEVICE)
+    spec = create_optimizer(configs.optim, rt.num_epochs, len(loader))
+    state = create_train_state(model, spec)
+
+    bev_raster_reduce.launches = 0  # count the main path's launches only
+    runs = {}
+    for dtype, epochs in (("float32", 5), ("bfloat16", 3)):
+        step = make_train_step(model, spec, compute_dtype=dtype, device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first = 1 if dtype == "float32" else 6
+        state, ms, losses, wait, wall = _timed_steps(step, state, _epoch_batches(loader, epochs, first))
+        if len(ms) != epochs:
+            raise AssertionError(f"{len(ms)} batches for {epochs} epochs of {TRAIN_FRAMES} frames")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite {dtype} training loss: {losses}")
+        steady = statistics.median(ms[1:])
+        frames = s * rt.batch_size
+        # end to end: the frames of the steps after the first over their wall
+        # time, loader wait included (each step here is an epoch of its own,
+        # so the threaded loader cannot load the next batch during a step)
+        runs[dtype] = {"steps": len(ms), "step_ms": ms, "step_ms_median_after_first": steady,
+                       "step_wall_ms": wall, "loader_wait_ms": wait,
+                       "frames_per_s_end_to_end": (len(ms) - 1) * frames / (sum(wall[1:]) / 1e3),
+                       "frames_per_s_device": frames / (steady / 1e3), "losses": losses,
+                       "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    launches = bev_raster_reduce.launches
+    n_batches = sum(r["steps"] for r in runs.values())
+    if launches != n_batches:
+        raise AssertionError(f"bev_raster_reduce launched {launches} times for {n_batches} collated batches")
+
+    # 8 Adam steps on one fixed batch lower its loss (a fresh model)
+    fixed = next(iter(_epoch_batches(loader, 1, 20)))
+    ov_model = _train_model(init_sd).to(DEVICE)
+    ov_spec = create_optimizer(OptimConfig(optimizer_type="adam", lr=1e-3, lr_type="cosin"), 10, 5)
+    ov_state = create_train_state(ov_model, ov_spec)
+    ov_step = make_train_step(ov_model, ov_spec, compute_dtype="float32", device=DEVICE)
+    overfit = []
+    for i in range(8):
+        if i == 1:  # where a float32 step's device time goes (the shapes are warm)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                ov_state, stats = ov_step(ov_state, fixed)
+                torch.cuda.synchronize()
+        else:
+            ov_state, stats = ov_step(ov_state, fixed)
+        overfit.append(float(stats["total_loss"]))
+    if not (np.isfinite(overfit).all() and overfit[-1] < overfit[0]):
+        raise AssertionError(f"8 Adam steps on one batch did not lower its loss: {overfit}")
+    kernels = sorted(((self_device_us(e), e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and self_device_us(e) > 0), reverse=True)
+    device_ms = sum(us for us, _ in kernels) / 1e3
+    profile = {"kernel_device_ms": device_ms, "top_kernels": [[k[:90], us / 1e3] for us, k in kernels[:10]],
+               "conv_gemm_share": sum(us for us, k in kernels if re.search(r"conv|cudnn|xmma|gemm|sm90|engine", k, re.I))
+               / 1e3 / device_ms if device_ms else None}
+    prep = _prepare_checks(loader)
+
+    # one epoch of the training CLI (train step, validation, checkpoint)
+    bev_raster_reduce.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--dataset_dir", root, "--root-dir", os.path.join(tmp_root, "cli"), "--num_epochs", "1",
+                    "--checkpoint_freq", "1", "--seed", str(SEED), "--print_freq", "1"])
+    cli_s = time.perf_counter() - t0
+    val_batches = len(create_val_loader(configs, device=DEVICE))
+    cli_launches = bev_raster_reduce.launches
+    if cli_launches != 1 + val_batches:
+        raise AssertionError(f"the CLI epoch launched the raster {cli_launches} times for 1 + {val_batches} batches")
+    # the CLI's validation batches, the tail included, on the card and on the CPU
+    val_frames, val_err = [], [0.0, 0.0, 0.0]
+    for got, want in zip(create_val_loader(configs, device=DEVICE), create_val_loader(configs, device="cpu")):
+        errs = raster_errors(got["bev"].flatten(0, 1).cpu(), want["bev"].flatten(0, 1))
+        _check_targets({k: v.flatten(0, 1) for k, v in got["targets"].items()},
+                       {k: v.flatten(0, 1) for k, v in want["targets"].items()})
+        val_err = [max(a, b) for a, b in zip(val_err, errs)]
+        val_frames.append(got["bev"].shape[1])
+    if len(val_frames) != val_batches or sum(val_frames) != TRAIN_VAL_FRAMES:
+        raise AssertionError(f"validation batches {val_frames} for {TRAIN_VAL_FRAMES} frames")
+    ckpt = os.path.join(tmp_root, "cli", "checkpoints", rt.saved_fn, f"Model_{rt.saved_fn}_epoch_1.pth")
+    Detector(checkpoint=ckpt, device=DEVICE)  # the served path loads what training wrote
+    emit({"phase": "train", "arch": configs.model.arch, "bev": [H, W], "batch_size": rt.batch_size, "S": s,
+          "frames_per_step": s * rt.batch_size, "mini_kitti_frames": TRAIN_FRAMES, "write_seconds": write_s,
+          "augmentation": {"aug_prob": configs.data.aug_prob, "hflip_prob": configs.data.hflip_prob},
+          **runs, "raster_launches": launches, "collated_batches": n_batches, "overfit_adam_losses": overfit,
+          "float32_step_profile": profile, "prepare_batch_ms": prep,
+          "cli_epoch_seconds": cli_s, "cli_raster_launches": cli_launches, "cli_val_batches": val_batches,
+          "cli_val_batch_frames": val_frames, "cli_val_vs_cpu_raster_max_abs_err": val_err,
+          "card": card["nvidia_smi"]})
+    train_err = max(max(prep["raster_vs_plain_on_card_max_abs_err"]), max(prep["prepare_vs_cpu_raster_max_abs_err"]),
+                    max(val_err))
+    return launches, n_batches, train_err
+
+
 def main() -> int:
     card = phase_device()
     phase_build(card)
@@ -1242,6 +1577,8 @@ def main() -> int:
     counts_rec["launches"] = phase_counts(card, scans)
     counts_rec["path"] = "count map of the 16 served scans: cell_indices_and_keys -> bev_cell_counts"
     fused = phase_fused_serve(card)
+    with tempfile.TemporaryDirectory() as tmp_root:
+        train_launches, train_batches, train_err = phase_train(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -1251,7 +1588,9 @@ def main() -> int:
     counts_rec["launches_by_path"] = {"lidar_serve": served_count_launches,
                                       "fused_serve": fused["bev_cell_counts"]}
     raster_rec["launches_by_path"] = {"lidar_serve": lidar_raster_launches,
-                                      "fused_serve": fused["bev_raster_reduce"]}
+                                      "fused_serve": fused["bev_raster_reduce"], "train": train_launches}
+    raster_rec["launches_per_train_step"] = train_launches / train_batches
+    raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     print(card["nvidia_smi"], flush=True)
     emit({"kernels": [counts_rec, raster_rec, *loop_recs]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,1 @@
+"""Command-line entry points of the port (`python -m sfa3d_tpu_torch.cli.train`)."""

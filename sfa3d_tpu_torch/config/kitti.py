@@ -1,11 +1,27 @@
-"""KITTI constants used by the serving paths.
+"""KITTI constants used by the serving and training paths.
 
-The port's own copy of the values in `sfa3d_tpu/config/kitti.py` (class map,
+The port's own copy of the values in `sfa3d_tpu/config/kitti.py` (class maps,
 front BEV boundary, raster size, point budgets, the dataset-average
 calibration); the port imports nothing of the JAX package.
 """
 
 import numpy as np
+
+# Label names -> class ids (0 Pedestrian, 1 Car/Vehicle, 2 Cyclist).
+# Negative ids are ignore categories: -1 ignores every class (DontCare),
+# -3 ignores class -id - 2 = 1 (Truck); -99 rows are dropped (Tram, Misc).
+CLASS_NAME_TO_ID = {
+    "Pedestrian": 0,
+    "Vehicle": 1,
+    "Car": 1,
+    "Van": 1,
+    "Cyclist": 2,
+    "Truck": -3,
+    "Person_sitting": 0,
+    "Tram": -99,
+    "Misc": -99,
+    "DontCare": -1,
+}
 
 ID_TO_CLASS_NAME = {0: "Pedestrian", 1: "Car", 2: "Cyclist"}
 

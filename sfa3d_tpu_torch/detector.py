@@ -5,6 +5,8 @@
 
     det = Detector()                                   # random init, on cuda
     det = Detector(checkpoint="Model_fpn_resnet_18_epoch_300.pth")
+    det = Detector(checkpoint=".../Model_fpn_resnet_18_epoch_2.pth",
+                   use_ema=True)                       # a port training checkpoint's EMA weights
     det = Detector(device="cpu")                       # explicit CPU run
 
     boxes = det.detect(points)        # (N, 4) raw velodyne points
@@ -55,7 +57,9 @@ def format_detections(out: Dict, i: int) -> List[Dict]:
 class Detector:
     """LiDAR detector on one device. `device` defaults to cuda and raises
     without a GPU; pass device="cpu" for a CPU run. Random weights come
-    from `torch.Generator().manual_seed(seed)`."""
+    from `torch.Generator().manual_seed(seed)`. A `.pth` checkpoint is a
+    reference state_dict or a training checkpoint of the port (use_ema
+    selects its EMA weights)."""
 
     def __init__(
         self,
@@ -66,6 +70,7 @@ class Detector:
         dtype: str = "float32",
         device: Device = None,
         seed: int = 0,
+        use_ema: bool = False,
     ):
         from sfa3d_tpu_torch.models import create_model
         from sfa3d_tpu_torch.pipeline import init_detector
@@ -77,12 +82,14 @@ class Detector:
         self.peak_thresh = peak_thresh
         self.arch = arch
         model = create_model(arch)
+        if use_ema and (checkpoint is None or not checkpoint.endswith(".pth")):
+            raise ValueError("use_ema needs a training checkpoint (.pth) of the port")
         if checkpoint is None:
             self.model = init_detector(model, torch.Generator().manual_seed(seed), self.device)
         elif checkpoint.endswith(".pth"):
             from sfa3d_tpu_torch.models.port import load_torch_checkpoint
 
-            model.load_state_dict(load_torch_checkpoint(checkpoint), strict=True)
+            model.load_state_dict(load_torch_checkpoint(checkpoint, use_ema=use_ema), strict=True)
             self.model = model.to(self.device).eval()
         elif os.path.isdir(checkpoint):
             raise NotImplementedError(

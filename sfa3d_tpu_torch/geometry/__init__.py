@@ -1,2 +1,2 @@
-"""Calibration and the camera<->LiDAR transforms the fusion path needs; the
-port of the parts of `sfa3d_tpu/geometry/` that the projection uses."""
+"""Calibration and the camera <-> LiDAR transforms; the port of the parts of
+`sfa3d_tpu/geometry/` that the projection and the training data use."""

@@ -15,11 +15,12 @@ JAX `model.apply`.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sfa3d_tpu_torch.models.resnet import ResNetBackbone, stage_channels
@@ -35,10 +36,44 @@ HEADS: Dict[str, int] = {
 HM_BIAS = -2.19  # focal-loss prior on the heatmap head's final bias
 
 
+@functools.lru_cache(maxsize=None)
+def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) bilinear interpolation weights with align_corners=True,
+    output i sampling input i * (n_in - 1) / (n_out - 1). Float32, as the
+    JAX package builds them (so a float64 model uses the same rounded
+    weights as the JAX one)."""
+    A = np.zeros((n_out, n_in), dtype=np.float32)
+    if n_out == 1 or n_in == 1:
+        A[:, 0] = 1.0
+        return A
+    scale = (n_in - 1) / (n_out - 1)
+    for i in range(n_out):
+        src = i * scale
+        lo = int(np.floor(src))
+        hi = min(lo + 1, n_in - 1)
+        frac = src - lo
+        A[i, lo] += 1.0 - frac
+        A[i, hi] += frac
+    return A
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    # one copy per device and dtype: a host-to-device copy of pageable
+    # memory synchronizes the stream, which on every forward would stall
+    # the host's launches behind the device's work. Made outside inference
+    # mode, so that a copy first made while serving can enter a backward.
+    with torch.inference_mode(False):
+        return torch.from_numpy(_align_corners_matrix(n_in, n_out)).to(device, dtype)
+
+
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, 2H, 2W), bilinear with align_corners=True."""
+    """(B, C, H, W) -> (B, C, 2H, 2W), bilinear with align_corners=True, as
+    two products with the interpolation matrices (the JAX package's form)."""
     h, w = x.shape[-2:]
-    return F.interpolate(x, size=(2 * h, 2 * w), mode="bilinear", align_corners=True)
+    ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
+    aw = _interp_matrix(w, 2 * w, x.device, x.dtype)
+    return torch.matmul(torch.matmul(ah, x), aw.transpose(0, 1))
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

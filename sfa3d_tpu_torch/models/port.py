@@ -10,7 +10,14 @@ layout.
 
 Layout: flax conv kernel (kH, kW, I, O) -> torch weight (O, I, kH, kW);
 BatchNorm scale/bias -> weight/bias; batch_stats mean/var ->
-running_mean/running_var.
+running_mean/running_var. float64 leaves stay float64 (the float64 parity
+checks); every other float becomes float32.
+
+`load_train_state_from_jax` carries a whole JAX `TrainState` (params,
+batch_stats, the optax moments, step, ema_params) into the port's
+training state, so both sides start a step from the same numbers.
+`load_torch_checkpoint` reads reference `.pth` files and the port's own
+training checkpoints (`runtime/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -25,12 +32,17 @@ from sfa3d_tpu_torch.models.kfpn import HEADS
 from sfa3d_tpu_torch.models.resnet import RESNET_SPEC
 
 
+def _float(a) -> np.ndarray:
+    a = np.asarray(a)
+    return np.array(a, dtype=np.float64 if a.dtype == np.float64 else np.float32)
+
+
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    return torch.from_numpy(_float(a))
 
 
 def _kernel(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32).transpose(3, 2, 0, 1)))
+    return torch.from_numpy(np.ascontiguousarray(_float(a).transpose(3, 2, 0, 1)))
 
 
 def state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "OrderedDict[str, torch.Tensor]":
@@ -140,10 +152,78 @@ def yolo_state_dict_from_jax(variables: Mapping[str, Any], scale: str = "n",
     return sd
 
 
-def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """Read a reference `.pth` checkpoint into a plain state_dict: unwraps a
-    {"state_dict": ...} container and strips DataParallel's `module.`."""
+def _find_moments(node, attr: str):
+    """The optax state node that carries `attr` ('mu' of Adam, 'trace' of
+    SGD), searched through chains and inject_hyperparams wrappers."""
+    if hasattr(node, attr):
+        return node
+    if hasattr(node, "inner_state"):
+        return _find_moments(node.inner_state, attr)
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            found = _find_moments(child, attr)
+            if found is not None:
+                return found
+    return None
+
+
+def load_train_state_from_jax(state, jax_state, num_layers: int = 18):
+    """Carry a JAX `TrainState` into the port's `TrainState` (in place):
+    params and batch_stats into the model, the optax moments into the
+    torch.optim state (Adam mu / nu / count -> exp_avg / exp_avg_sq / step;
+    the SGD trace -> momentum_buffer), the step, and ema_params. Tensors
+    take the model's dtype and device. The JAX state's leaves only need to
+    convert with np.asarray (the port imports no JAX). Returns `state`."""
+
+    def host(tree):
+        if isinstance(tree, Mapping):
+            return {k: host(v) for k, v in tree.items()}
+        return np.asarray(tree)
+
+    batch_stats = host(jax_state.batch_stats)
+    model = state.model
+    ref = next(model.parameters())
+    sd = state_dict_from_jax({"params": host(jax_state.params), "batch_stats": batch_stats}, num_layers)
+    model.load_state_dict(sd, strict=True)
+    names = [k for k, _ in model.named_parameters()]
+
+    def as_params(tree):
+        out = state_dict_from_jax({"params": host(tree), "batch_stats": batch_stats}, num_layers)
+        return {k: out[k].to(ref.dtype).to(ref.device) for k in names}
+
+    params = dict(model.named_parameters())
+    adam = _find_moments(jax_state.opt_state, "mu")
+    sgd = _find_moments(jax_state.opt_state, "trace")
+    opt = state.optimizer
+    if adam is not None:
+        mu, nu = as_params(adam.mu), as_params(adam.nu)
+        step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+        for k in names:
+            opt.state[params[k]] = {"step": step.clone(), "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+    elif sgd is not None:
+        trace = as_params(sgd.trace)
+        for k in names:
+            opt.state[params[k]] = {"momentum_buffer": trace[k]}
+    else:
+        raise ValueError("the JAX optimizer state holds neither Adam moments nor an SGD trace")
+    state.step = int(np.asarray(jax_state.step))
+    state.ema_params = None if jax_state.ema_params is None else as_params(jax_state.ema_params)
+    return state
+
+
+def load_torch_checkpoint(path: str, use_ema: bool = False) -> Dict[str, torch.Tensor]:
+    """Read a `.pth` checkpoint into a plain KFPN state_dict: a reference
+    file (a raw state_dict or {"state_dict": ...}; DataParallel's `module.`
+    stripped) or a training checkpoint of the port (`runtime/checkpoint.py`).
+    With use_ema the port checkpoint's EMA weights replace the parameters
+    (the BatchNorm statistics stay the run's own)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    ema = sd.get("ema_params") if isinstance(sd, dict) else None
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
-    return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    if use_ema:
+        if ema is None:
+            raise ValueError(f"use_ema asked for, but {path} holds no ema_params (trained without --ema_decay?)")
+        sd.update(ema)
+    return sd

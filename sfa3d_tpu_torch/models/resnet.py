@@ -4,8 +4,9 @@
 Parameter names are the reference PoseResNet's (`conv1`, `bn1`,
 `layer1.0.conv1`, `layer2.0.downsample.0`, ...), so a reference
 `Model_fpn_resnet_*.pth` state_dict loads with strict=True. BatchNorm uses
-eps 1e-5 and torch momentum 0.1 (flax momentum 0.9); in eval mode it uses
-the running statistics.
+eps 1e-5; in eval mode it uses the running statistics, in training mode the
+batch's, and it updates the running statistics as flax does
+(`FlaxBatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -13,14 +14,49 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
-BN_MOMENTUM = 0.1  # torch convention == flax momentum 0.9
+FLAX_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): running = 0.9 * running + 0.1 * batch
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose training-mode update of the running statistics is
+    flax's: running_var takes the BIASED batch variance (torch's own
+    BatchNorm2d takes the unbiased one, n / (n - 1) larger: 8/7 for 2 x 2
+    cells at batch 2, which layer4 sees on a 64x64 raster), as
+    momentum * running + (1 - momentum) * batch with flax's momentum 0.9.
+
+    F.batch_norm normalises with the batch statistics (cuDNN on the card)
+    and updates the running statistics in the same pass, with torch's
+    momentum 0.1 = 1 - flax's, into C-element copies: the mean is then
+    flax's, and the variance is brought from the unbiased to the biased one
+    with the old running_var. Eval mode is nn.BatchNorm2d's. The state_dict keys
+    (weight, bias, running_mean, running_var, num_batches_tracked) are
+    nn.BatchNorm2d's."""
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]  # values per channel
+        # copies, since autograd keeps what F.batch_norm was given
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1 - FLAX_MOMENTUM, self.eps)
+        with torch.no_grad():
+            # var now holds old + 0.1 * batch_var * n / (n - 1)
+            old = FLAX_MOMENTUM * self.running_var
+            self.running_mean.copy_(mean)
+            self.running_var.copy_(old + (var - old) * ((n - 1) / n))
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def _bn(channels: int) -> FlaxBatchNorm2d:
+    return FlaxBatchNorm2d(channels)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:

@@ -343,17 +343,60 @@ def select_detections(boxes: torch.Tensor, scores: torch.Tensor, conf_thresh: fl
 # ---------------------------------------------------------------------------
 
 
+_COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE: 11-bit fixed-point weights
+
+
+def _linear_taps(dst: int, src: int, snap_left: bool):
+    """cv2's INTER_LINEAR source index and fixed-point weights along one
+    axis: the position (d + 0.5) * (src / dst) - 0.5 is computed in double
+    and rounded to float32, its fraction in float32, and each weight is
+    round-half-even(w * 2048) of the float32 weight. With `snap_left` (the
+    horizontal axis) a position left of the first pixel takes pixel 0 with
+    weight 1; the vertical axis keeps index -1 and its weights, and the
+    caller clamps the rows. Returns (index, w0, w1)."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = (f - s.astype(np.float32)).astype(np.float32)
+    if snap_left:
+        f = np.where(s < 0, np.float32(0.0), f)
+        s = np.maximum(s, 0)
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(_COEF_SCALE)).astype(np.int32)
+    w1 = np.rint(f * np.float32(_COEF_SCALE)).astype(np.int32)
+    return s, w0, w1
+
+
+def _resize_uint8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """cv2.resize(INTER_LINEAR) of a uint8 image, bit for bit, in numpy
+    integer arithmetic (cv2's fixed-point path for 8-bit images):
+    a horizontal pass with the 11-bit weights into int32 rows (a column at
+    or past the last source pixel copies it x 2048), then per output row
+    ((w0 * (row0 >> 4)) >> 16) + ((w1 * (row1 >> 4)) >> 16) + 2) >> 2, with
+    the two source rows clamped into the image."""
+    h, w = img.shape[:2]
+    x = img.astype(np.int32).reshape(h, w, -1)
+    sx, a0, a1 = _linear_taps(nw, w, snap_left=True)
+    last = sx >= w - 1
+    sx = np.where(last, w - 1, sx)
+    a0, a1 = np.where(last, _COEF_SCALE, a0), np.where(last, 0, a1)
+    rows = x[:, sx] * a0[None, :, None] + x[:, np.minimum(sx + 1, w - 1)] * a1[None, :, None]
+    sy, b0, b1 = _linear_taps(nh, h, snap_left=False)
+    r0 = rows[np.clip(sy, 0, h - 1)] >> 4
+    r1 = rows[np.clip(sy + 1, 0, h - 1)] >> 4
+    out = (((b0[:, None, None] * r0) >> 16) + ((b1[:, None, None] * r1) >> 16) + 2) >> 2
+    return out.astype(np.uint8).reshape((nh, nw) + img.shape[2:])
+
+
 def _resize_bilinear(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
-    """cv2.resize(INTER_LINEAR) in PyTorch: half-pixel centres
-    (align_corners=False), no antialiasing. uint8 images come back uint8,
-    rounded and saturated (cv2's fixed-point path may differ by one grey
-    level); other types come back float32."""
+    """cv2.resize(INTER_LINEAR) without cv2. uint8 images take cv2's
+    fixed-point arithmetic (`_resize_uint8`, equal to cv2 bit for bit);
+    other types take a float bilinear resize in PyTorch (half-pixel
+    centres, no antialiasing) and come back float32."""
+    if img.dtype == np.uint8:
+        return _resize_uint8(img, nh, nw)
     t = torch.from_numpy(np.ascontiguousarray(img)).to(torch.float32)
     chw = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
     out = F.interpolate(chw, size=(nh, nw), mode="bilinear", align_corners=False, antialias=False)[0]
     out = out[0] if t.dim() == 2 else out.permute(1, 2, 0)
-    if img.dtype == np.uint8:
-        return torch.round(out).clamp(0, 255).to(torch.uint8).numpy()
     return out.numpy()
 
 

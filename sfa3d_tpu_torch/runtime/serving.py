@@ -167,7 +167,7 @@ class BatchingDetectorServer:
             try:
                 with self._device_lock:
                     self._run_batch(batch)
-            except Exception as e:  # the boundary that must keep serving
+            except BaseException as e:  # the boundary that must keep serving: every exception reaches the callers
                 for _, _, fut in batch:
                     if not fut.done():
                         fut.set_exception(e)

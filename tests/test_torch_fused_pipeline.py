@@ -205,3 +205,77 @@ def test_batching_fused_server_on_cpu(fused_detector, tmp_path):
         _assert_replies_equal(got, fused_detector.detect(points, image, calib))
     with pytest.raises(RuntimeError, match="server stopped"):
         server.submit_fused(*reqs[0])
+
+
+def test_fused_detector_raw_frame_matches_jax(fixture, tmp_path):
+    """A raw uint8 frame through `FusedDetector.detect` (the port's cv2-free
+    letterbox, then the fused program at the 128x128 raster) against the JAX
+    path on the same frame (cv2's letterbox, the JAX fused program)."""
+    from sfa3d_tpu.models.yolov8 import letterbox as jletterbox
+    from sfa3d_tpu_torch.detector import fused_reply
+
+    (kfpn, kvars, yolo, yvars), (tkfpn, tyolo), _ = fixture
+    torch.save(tkfpn.state_dict(), tmp_path / "kfpn.pth")
+    torch.save(tyolo.state_dict(), tmp_path / "yolov8n.pt")
+    kw = dict(K=K, max_yolo=MAX_YOLO, fusion_iou_threshold=FUSION_IOU)
+    det = FusedDetector(checkpoint=str(tmp_path / "kfpn.pth"), yolo_checkpoint=str(tmp_path / "yolov8n.pt"),
+                        imgsz=CANVAS, device="cpu", **kw)
+    # the detector's own program, rebuilt at the test's 128x128 raster
+    det._run = build_fused_pipeline(det.kfpn, det.yolo, bev_size=BEV, device="cpu", **kw)
+    run = jbuild_fused_pipeline(kfpn, yolo, bev_size=BEV, sfa_conf_gate=0.2, **kw)
+    n_rows = 0
+    for points, image, calib in _requests(2):
+        # half blurred, half noise: the resize's rounding shows on both kinds of pixel
+        image[: IMG_HW[0] // 2] = np.asarray(
+            torch.nn.functional.avg_pool2d(torch.from_numpy(image[: IMG_HW[0] // 2]).permute(2, 0, 1)[None].float(),
+                                           5, 1, 2)[0].permute(1, 2, 0), np.uint8)
+        got = det.detect(points, image, calib)
+        pts, valid = filter_and_pad_points(points)
+        img, r, pad = jletterbox(image, CANVAS)
+        out = run(kvars, yvars, pts[None], valid[None], img[None], calib.V2C[None].astype(np.float32),
+                  calib.R0[None].astype(np.float32), calib.P2[None].astype(np.float32),
+                  np.float32([IMG_HW]), np.float32([r]), np.float32([pad]))
+        want = fused_reply({k: np.asarray(v) for k, v in out.items()}, 0)
+        _assert_replies_equal(got, want)
+        n_rows += len(want["boxes"])
+    assert n_rows > 0, "no detection: vacuous"
+
+
+class _Interrupt(BaseException):
+    """Not an Exception: what a KeyboardInterrupt or SystemExit looks like to
+    the dispatch thread."""
+
+
+class _InterruptOnce:
+    """A detector whose first batch raises `_Interrupt`; later batches
+    answer."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def detect_batch(self, pts, valid):
+        self.calls += 1
+        if self.calls == 1:
+            raise _Interrupt("first batch")
+        b = pts.shape[0]
+        return {"mask": np.zeros((b, 1), bool), "boxes_real": np.zeros((b, 1, 8), np.float32),
+                "detections": np.zeros((b, 1, 10), np.float32)}
+
+
+def test_dispatch_survives_base_exception():
+    from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer
+
+    det = _InterruptOnce()
+    server = BatchingDetectorServer(det, max_batch=4, max_delay_ms=1000.0)
+    try:
+        scan = np.zeros((10, 4), np.float32)
+        scan[:, 0] = 10.0
+        first = [server.submit(scan) for _ in range(3)]
+        for fut in first:
+            with pytest.raises(_Interrupt, match="first batch"):
+                fut.result(timeout=60)
+        assert server._thread.is_alive()
+        assert server.submit(scan).result(timeout=60) == []
+    finally:
+        server.stop()
+    assert det.calls == 2 and server.stats["served"] == 1

@@ -27,7 +27,10 @@ def _port_modules():
 def test_port_imports_without_jax():
     modules = _port_modules()
     for name in ("ops.bev_counts", "ops.fusion_loops", "models.yolov8", "fusion.batch",
-                 "fusion.pipeline", "geometry.calibration", "runtime.serving"):
+                 "fusion.pipeline", "geometry.calibration", "runtime.serving", "ops.targets",
+                 "losses.losses", "data.loader", "data.kitti", "data.synthetic", "data.augment",
+                 "parallel.train_step", "runtime.schedules", "runtime.checkpoint", "runtime.logger",
+                 "config.train", "cli.train"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -96,6 +99,34 @@ def test_fused_entry_points_raise_without_gpu(monkeypatch):
         run(*([None] * 9))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fuse_frame([], [], [], [[0] * 8], [0.0], [False], KittiCalibration(None), (375, 1242))
+
+
+def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    from sfa3d_tpu_torch.cli.train import main
+    from sfa3d_tpu_torch.config.train import OptimConfig, parse_train_configs
+    from sfa3d_tpu_torch.data.loader import create_train_loader
+    from sfa3d_tpu_torch.models import create_model
+    from sfa3d_tpu_torch.parallel import make_eval_step, make_train_step
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = create_model("fpn_resnet_18")
+    tx = create_optimizer(OptimConfig(), 1, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(model, tx)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_eval_step(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--dataset_dir", str(tmp_path), "--root-dir", str(tmp_path)])
+    (tmp_path / "ImageSets").mkdir()
+    (tmp_path / "ImageSets" / "train.txt").write_text("000000\n")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_loader(parse_train_configs(["--dataset_dir", str(tmp_path)]))
+    # asked for, the CPU works; a model elsewhere than the step's device is refused
+    make_train_step(model, tx, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="lies on"):
+        make_train_step(model, tx, device="cuda")
 
 
 def test_count_kernel_has_no_silent_fallback():

@@ -28,7 +28,6 @@ HEADS_TOL = 1e-4  # float32 conv sums in another order than XLA's
 # in another order) times strides up to 32, plus 2 float32 ulps of a
 # coordinate that reaches ~1000 px
 DECODE_ATOL, DECODE_RTOL = 1e-4, 2.4e-7
-PIXEL_TOL = 1 / 255  # cv2's fixed-point uint8 resize vs float bilinear + round: one grey level
 
 
 def _perturbed_variables(model, shape, seed):
@@ -155,12 +154,35 @@ def test_letterbox_matches_cv2_version(rng, src_hw, canvas):
     want, wr, wpad = jyolo.letterbox(img, canvas)
     assert got.shape == want.shape and got.dtype == want.dtype == np.float32
     assert r == wr and pad == wpad
-    np.testing.assert_allclose(got, want, rtol=0, atol=PIXEL_TOL + 1e-7)
+    np.testing.assert_array_equal(got, want)  # the uint8 resize is cv2's, bit for bit
     if canvas == (224, 640):
         assert got.shape == (224, 640, 3) and pad == (0, 15)
     fimg = img.astype(np.float32) / 255.0  # float images: cv2's float path
     np.testing.assert_allclose(letterbox(fimg, canvas)[0], jyolo.letterbox(fimg, canvas)[0],
                                rtol=0, atol=2e-6)
+
+
+def _resize_cases():
+    rng = np.random.default_rng(5)
+    cases = [((375, 1242, 3), (214, 640)), ((200, 300, 3), (100, 150)), ((120, 200, 3), (128, 213)),
+             ((7, 5), (31, 2)), ((1, 9, 3), (4, 1)), ((64, 64, 4), (64, 65))]
+    for _ in range(40):  # random sizes, up- and downscaling on either axis
+        h, w, nh, nw = (int(v) for v in rng.integers(1, 400, 4))
+        cases.append(((h, w, 3), (nh, nw)))
+    return cases
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_resize_uint8_equals_cv2(chunk):
+    from sfa3d_tpu_torch.models.yolov8 import _resize_bilinear
+
+    rng = np.random.default_rng(chunk)
+    for shape, (nh, nw) in _resize_cases()[chunk::4]:
+        img = rng.integers(0, 256, shape).astype(np.uint8)
+        got = _resize_bilinear(img, nh, nw)
+        want = cv2.resize(img, (nw, nh), interpolation=cv2.INTER_LINEAR).reshape(got.shape)
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want, err_msg=f"{shape} -> {(nh, nw)}")
 
 
 def test_checkpoint_round_trip(tmp_path):
