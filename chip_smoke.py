@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths
-and its training path on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths,
+its KFPN and YOLOv8 training paths and its evaluation on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
@@ -78,6 +79,29 @@ Phases, each printing one JSON line:
           targets bit-exact); one epoch of the training CLI, whose
           checkpoint Detector loads, and its validation batches (16, 16 and
           a tail of 8 frames) on the card against the CPU route
+  yolo_train_parity  one strict-fp32 YOLOv8n epoch (S = 3 x B = 2 at 64 x
+          128, 3 classes, AdamW with a warmup, EMA, fixed flips) of the same
+          model and data on the card and the CPU: loss terms, parameters,
+          BatchNorm statistics and EMA within the printed tolerances
+  yolo_train  the yolo-train CLI's defaults (YOLOv8n, 192 x 640, batch 16,
+          3 classes) over the train phase's mini-KITTI camera frames (port
+          renderer, PNG codec): 4 epochs with an eval pass and 2D mAP after
+          each (hard_nms_keep once per eval batch), finite losses; the same
+          entry points timed step by step (CUDA-event ms, frames/s on the
+          device and end to end, peak memory); 8 steps on one batch lower
+          its loss
+  yolo_eval  best.pt through load_yolo_checkpoint, the val split through
+          make_yolo_eval_fn on the card: one hard_nms_keep launch per batch,
+          every batch's detections equal to the CPU selection (plain NMS)
+          fed the card's network outputs and their decode, the 2D mAP
+          equal, the CPU's own decode within 1e-4 px + 2.4e-7 relative
+          (scores 1e-6); hard_nms_keep at the eval's (8, 512) bit-exact
+          against its plain version, timed
+  kitti_eval  python -m sfa3d_tpu_torch.cli.eval on the card and with
+          --platform cpu on one KFPN-18 checkpoint (heatmap biases bumped):
+          every AP within 1e-6, one bev_raster_reduce launch per frame; the
+          evaluator on seeded detections near the ground truth (AP above 0)
+          card vs CPU; rotated BEV and 3D IoU card vs CPU within 1e-5
 Then one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -95,6 +119,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -1562,7 +1587,486 @@ def phase_train(card, tmp_root):
           "card": card["nvidia_smi"]})
     train_err = max(max(prep["raster_vs_plain_on_card_max_abs_err"]), max(prep["prepare_vs_cpu_raster_max_abs_err"]),
                     max(val_err))
-    return launches, n_batches, train_err
+    return launches, n_batches, train_err, root
+
+
+# ---------------------------------------------------------------------------
+# YOLOv8 training and the eval passes
+# ---------------------------------------------------------------------------
+
+YOLO_PARITY_HW = (64, 128)  # the GPU vs CPU epoch: canvas, S steps of B frames
+YOLO_PARITY_S, YOLO_PARITY_B = 3, 2
+YOLO_CLASSES = 3  # the KITTI ids, the yolo-train CLI's default
+YOLO_EPOCHS = 4  # CLI epochs over the mini-KITTI: 3 steps each, an eval pass after each
+YOLO_TIMED_STEPS = 8  # full-width steps timed one by one after a first
+YOLO_STEP_LOSS_RTOL = 1e-5  # loss terms GPU vs CPU of the first step (the same parameters)
+YOLO_CANCELLED_SHARE = 0.1  # AdamW elements with |mu| <= this share of sqrt(nu) are excused
+# the epoch's mean loss terms: its later steps start from parameters that
+# AdamW moved by about lr * sign(g), so elements whose gradient is float32
+# noise move either way on the two devices
+YOLO_EPOCH_LOSS_RTOL = 1e-4
+# decoded boxes (px: within atol + rtol * |value|, two float32 ulps of a
+# coordinate, which reaches ~1100 px) and scores, card vs CPU on the same
+# levels: libm ulps of exp and the 16-bin sums (tests/test_torch_yolov8.py's
+# decode tolerance)
+YOLO_DECODE_ATOL, YOLO_DECODE_RTOL, YOLO_SCORE_ATOL = 1e-4, 2.4e-7, 1e-6
+YOLO_NMS_SHAPE = (8, 512)  # the eval's hard-NMS input: eval batch x pre_nms candidates
+KITTI_EVAL_FRAMES = 8  # val frames through cli/eval on the card and on the CPU
+AP_TOL = 1e-6  # KITTI AP and 2D mAP, card vs CPU
+ROT_IOU_TOL = 1e-5  # rotated IoU, card vs CPU
+
+
+def _yolo_split(rng, n, hw):
+    """n random uint8 frames with 8 box slots (the data/yolo2d.py layout)."""
+    xy = rng.uniform(0, [hw[1] - 12, hw[0] - 12], (n, 8, 2))
+    boxes = np.concatenate([xy, np.minimum(xy + rng.uniform(8, 40, (n, 8, 2)), [hw[1], hw[0]])], -1)
+    return {"images": rng.integers(0, 256, (n, *hw, 3)).astype(np.uint8), "boxes": boxes.astype(np.float32),
+            "labels": rng.integers(0, YOLO_CLASSES, (n, 8)).astype(np.int32), "mask": rng.random((n, 8)) < 0.7}
+
+
+def phase_yolo_train_parity(card):
+    """One strict-fp32 YOLO epoch (S = 3 x B = 2 at 64 x 128, YOLOv8n, 3
+    classes, AdamW with a 2-step warmup, EMA, fixed flips) of the same model
+    and data on the card and on the CPU: losses, parameters, BatchNorm
+    statistics and EMA within the printed tolerances."""
+    from sfa3d_tpu_torch.parallel.yolo_step import create_train_state, make_yolo_epoch_fn
+    from sfa3d_tpu_torch.runtime.schedules import OptimizerSpec, warmup_cosine_decay_schedule
+
+    rng = np.random.default_rng(SEED + 7)
+    split = _yolo_split(rng, 5, YOLO_PARITY_HW)
+    idx = rng.integers(0, 5, (YOLO_PARITY_S, YOLO_PARITY_B))
+    flips = rng.random((YOLO_PARITY_S, YOLO_PARITY_B)) < 0.5
+    flips[0] = [True, False]
+    init_sd = YOLOv8("n", YOLO_CLASSES).init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    spec = OptimizerSpec("adamw", warmup_cosine_decay_schedule(0.0, 1e-3, 2, 6, 1e-5), weight_decay=5e-4)
+    out, first = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, dev in (("cpu", torch.device("cpu")), ("gpu", DEVICE)):
+            data = {k: torch.from_numpy(v).to(dev) for k, v in split.items()}
+            for steps in (1, YOLO_PARITY_S):  # the first step alone, then the epoch
+                model = YOLOv8("n", YOLO_CLASSES)
+                model.load_state_dict(init_sd)
+                model = model.to(dev)
+                state = create_train_state(model, spec, ema=True)
+                epoch_fn = make_yolo_epoch_fn(model, spec, YOLO_PARITY_HW, ema_decay=0.999, ema_tau=2.0,
+                                              device=dev)
+                # the elements whose gradient is float32 noise at any step of
+                # the epoch (AdamW then moves them by about lr * sign(noise))
+                noise = {}
+
+                def mark(p, k):
+                    small = (p.grad.abs() <= TRAIN_GRAD_FLOOR * p.grad.abs().max()).cpu()
+                    noise[k] = small | noise[k] if k in noise else small
+
+                hooks = [p.register_post_accumulate_grad_hook(lambda p, k=k: mark(p, k))
+                         for k, p in model.named_parameters() if p.requires_grad]
+                state, metrics = epoch_fn(state, data, torch.from_numpy(idx[:steps]).to(dev),
+                                          flips=torch.from_numpy(flips[:steps]).to(dev))
+                for h in hooks:
+                    h.remove()
+                if steps == 1:
+                    first[name] = {k: float(v) for k, v in metrics.items()}
+            # where AdamW's direction is a near-cancelled sum of gradients of
+            # both signs: |mu| under YOLO_CANCELLED_SHARE of sqrt(nu)
+            cancelled = {k: (state.optimizer.state[p]["exp_avg"].abs()
+                             <= YOLO_CANCELLED_SHARE * state.optimizer.state[p]["exp_avg_sq"].sqrt()).cpu()
+                         for k, p in model.named_parameters() if p in state.optimizer.state}
+            out[name] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                         noise, {k: v.cpu() for k, v in state.ema_params.items()}, cancelled)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (cm, csd, cnoise, cema, ccancel), (gm, gsd, _, gema, _) = out["cpu"], out["gpu"]
+    terms = ("total", "box", "cls", "dfl")
+    step_err = max(abs(first["gpu"][k] - first["cpu"][k]) / abs(first["cpu"][k]) for k in terms)
+    loss_err = max(abs(gm[k] - cm[k]) / abs(cm[k]) for k in terms)
+    if not step_err <= YOLO_STEP_LOSS_RTOL or first["gpu"]["num_fg"] != first["cpu"]["num_fg"]:
+        raise AssertionError(f"YOLO first step: losses GPU vs CPU differ by {step_err} relative "
+                             f"({first['gpu']} vs {first['cpu']})")
+    if not loss_err <= YOLO_EPOCH_LOSS_RTOL or gm["num_fg"] != cm["num_fg"]:
+        raise AssertionError(f"YOLO epoch: losses GPU vs CPU differ by {loss_err} relative ({gm} vs {cm})")
+    largest_change = max((csd[k] - init_sd[k]).abs().max().item() for k in cnoise)
+    param_err, stat_err, excused = 0.0, 0.0, 0
+    for k, want in csd.items():
+        if k.endswith("num_batches_tracked"):
+            if not torch.equal(gsd[k], want):
+                raise AssertionError(f"{k} differs")
+            continue
+        if k in cnoise:
+            # AdamW's early updates are about lr * sign(g), and where its
+            # direction is a near-cancelled sum, float32 gradient noise moves an
+            # element either way (excused, counted)
+            noise = cnoise[k] | ccancel[k]
+            for what, got_t, want_t in (("parameter", gsd[k], want), ("EMA", gema[k], cema[k])):
+                d = (got_t - want_t).abs()
+                bad = d > TRAIN_PARAM_SHARE * largest_change
+                if (bad & ~noise).any():
+                    raise AssertionError(f"YOLO epoch: {what} {k} GPU vs CPU differs by {d.max().item()} "
+                                         f"(largest change {largest_change})")
+                if what == "parameter":
+                    excused += int((bad & noise).sum())
+                    param_err = max(param_err, d[~noise].max().item() / largest_change if (~noise).any() else 0.0)
+        elif k.endswith(("running_mean", "running_var")):
+            rel = (gsd[k] - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+            if rel > TRAIN_STAT_RTOL:
+                raise AssertionError(f"YOLO epoch: BatchNorm statistic {k} differs by {rel} relative")
+            stat_err = max(stat_err, rel)
+    emit({"phase": "yolo_train_parity", "hw": list(YOLO_PARITY_HW), "S": YOLO_PARITY_S, "B": YOLO_PARITY_B,
+          "first_step_loss_rtol": YOLO_STEP_LOSS_RTOL, "epoch_loss_rtol": YOLO_EPOCH_LOSS_RTOL,
+          "param_and_ema_tol_share_of_largest_change": TRAIN_PARAM_SHARE,
+          "bn_stat_rtol_of_tensor_max": TRAIN_STAT_RTOL,
+          "excuses_elements_with_a_step_grad_below_share_of_tensor_max": TRAIN_GRAD_FLOOR,
+          "excuses_elements_with_abs_mu_below_share_of_sqrt_nu": YOLO_CANCELLED_SHARE,
+          "first_step_loss_max_rel_err": step_err, "epoch_loss_max_rel_err": loss_err,
+          "param_max_err_share_of_largest_change": param_err,
+          "largest_change": largest_change, "bn_stat_max_rel_err": stat_err, "elements_excused": excused,
+          "losses_cpu": cm, "card": card["nvidia_smi"]})
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature now (nvidia-smi)."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                           "--format=csv,noheader"], capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip()
+
+
+def phase_yolo_train(card, root, ck_dir):
+    """The YOLO training path at full width through the entry points a user
+    calls: the yolo-train CLI's defaults (YOLOv8n, 192 x 640, batch 16, 3
+    classes, AdamW, EMA) over the mini-KITTI's 64 camera frames (51 train,
+    13 val), YOLO_EPOCHS epochs with an eval pass and 2D mAP after each;
+    then the same entry points (load_yolo2d_split, yolo_adamw,
+    create_train_state, make_yolo_epoch_fn) timed step by step with CUDA
+    events, and 8 steps on one batch, which must lower its loss. Returns the
+    val split, the CLI's hard_nms_keep launches and its best.pt."""
+    import math
+    import os
+
+    from sfa3d_tpu_torch.cli import yolo_train as ycli
+    from sfa3d_tpu_torch.data.yolo2d import as_hw, list_sample_ids, load_yolo2d_split
+    from sfa3d_tpu_torch.parallel.yolo_step import create_train_state, make_yolo_epoch_fn
+    from sfa3d_tpu_torch.runtime.schedules import OptimizerSpec, warmup_cosine_decay_schedule, yolo_adamw
+
+    args = ycli.parse_args(["--dataset_dir", root])
+    hw = as_hw(ycli.parse_imgsz(args.imgsz))
+    if (hw, args.batch_size, args.scale, args.num_classes) != ((192, 640), 16, "n", YOLO_CLASSES):
+        raise AssertionError("the yolo-train CLI's defaults are not 192 x 640, batch 16, YOLOv8n, 3 classes")
+    fusion_loops.hard_nms_keep.launches = 0  # the CLI's eval passes
+    t0 = time.perf_counter()
+    report = ycli.main(["--dataset_dir", root, "--epochs", str(YOLO_EPOCHS), "--eval_every", "1",
+                        "--checkpoints_dir", ck_dir, "--seed", str(SEED)])
+    cli_s = time.perf_counter() - t0
+    cli_launches = fusion_loops.hard_nms_keep.launches
+    eval_batches = math.ceil(report["val_frames"] / args.eval_batch)
+    if cli_launches != YOLO_EPOCHS * eval_batches:
+        raise AssertionError(f"hard_nms_keep launched {cli_launches} times in {YOLO_EPOCHS} eval passes "
+                             f"of {eval_batches} batches")
+    losses = [row["loss"] for row in report["history"]]
+    if len(losses) != YOLO_EPOCHS or not all(np.isfinite(v) for row in losses for v in row.values()):
+        raise AssertionError(f"YOLO CLI losses: {losses}")
+
+    ids = list_sample_ids(root)
+    n_val = report["val_frames"]
+    train = load_yolo2d_split(root, imgsz=hw, max_boxes=args.max_boxes, sample_ids=ids[:-n_val])
+    val = load_yolo2d_split(root, imgsz=hw, max_boxes=args.max_boxes, sample_ids=ids[-n_val:])
+    data = {k: torch.from_numpy(v).to(DEVICE) for k, v in train.items() if k != "ids"}
+    n_train = train["images"].shape[0]
+    steps_per_epoch = n_train // args.batch_size
+    model = YOLOv8(args.scale, args.num_classes).init_weights(torch.Generator().manual_seed(SEED)).to(DEVICE)
+    tx = yolo_adamw(args.lr, args.weight_decay, args.warmup_epochs, YOLO_EPOCHS, steps_per_epoch)
+    state = create_train_state(model, tx, ema=True)
+    epoch_fn = make_yolo_epoch_fn(model, tx, hw, ema_decay=args.ema_decay, ema_tau=args.ema_tau, device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    idx = np.stack([rng.permutation(n_train)[: args.batch_size] for _ in range(YOLO_TIMED_STEPS + 1)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state_before = card_state()
+    ms, wall, step_losses = [], [], []
+    for s in range(YOLO_TIMED_STEPS + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        state, metrics = epoch_fn(state, data, torch.from_numpy(idx[s:s + 1]), generator=gen)
+        end.record()
+        end.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+        ms.append(start.elapsed_time(end))
+        step_losses.append(float(metrics["total"]))
+    peak = torch.cuda.max_memory_allocated()
+    card_during = {"before": state_before, "after": card_state(), "host_threads": threading.active_count()}
+    # one more step under the profiler: host time of each part of the step,
+    # the kernels' device time and launches (is the step host-bound?)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        state, _ = epoch_fn(state, data, torch.from_numpy(idx[:1]), generator=gen)
+        torch.cuda.synchronize()
+    prof_wall = (time.perf_counter() - t) * 1e3
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    ranges = ("yolo.", "Optimizer.")  # the step's parts and the optimizer's own range, not kernels
+    host_by_part = {}
+    for e in prof.events():
+        if e.device_type == cpu and e.name.startswith("yolo."):
+            host_by_part[e.name] = host_by_part.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    kernels = sorted(((self_device_us(e), e.key, e.count) for e in prof.key_averages()
+                      if e.device_type == cuda and self_device_us(e) > 0 and not e.key.startswith(ranges)),
+                     reverse=True)
+    step_profile = {"wall_ms_profiled": prof_wall, "host_ms_by_part": host_by_part,
+                    "kernel_device_ms": sum(us for us, _, _ in kernels) / 1e3,
+                    "kernel_launches": sum(n for _, _, n in kernels),
+                    "top_kernels": [[k[:80], us / 1e3, n] for us, k, n in kernels[:8]]}
+    if not np.isfinite(step_losses).all():
+        raise AssertionError(f"non-finite YOLO training loss: {step_losses}")
+    steady = statistics.median(ms[1:])
+
+    # 8 steps on one batch lower its loss (a fresh model, no flips)
+    ov_model = YOLOv8(args.scale, args.num_classes).init_weights(torch.Generator().manual_seed(SEED + 1))
+    ov_model = ov_model.to(DEVICE)
+    ov_spec = OptimizerSpec("adamw", warmup_cosine_decay_schedule(0.0, 1e-3, 1, 50, 1e-5), weight_decay=args.weight_decay)
+    ov_state = create_train_state(ov_model, ov_spec)
+    ov_epoch = make_yolo_epoch_fn(ov_model, ov_spec, hw, device=DEVICE)
+    overfit = []
+    for _ in range(8):
+        ov_state, m = ov_epoch(ov_state, data, torch.from_numpy(idx[:1]),
+                               flips=torch.zeros(1, args.batch_size, dtype=torch.bool))
+        overfit.append(float(m["total"]))
+    if not (np.isfinite(overfit).all() and overfit[-1] < overfit[0]):
+        raise AssertionError(f"8 steps on one batch did not lower its loss: {overfit}")
+    emit({"phase": "yolo_train", "hw": list(hw), "batch_size": args.batch_size, "scale": args.scale,
+          "classes": args.num_classes, "train_frames": n_train, "val_frames": n_val, "cli_epochs": YOLO_EPOCHS,
+          "cli_steps_per_epoch": steps_per_epoch, "cli_seconds": cli_s, "cli_history": report["history"],
+          "cli_hard_nms_keep_launches": cli_launches, "cli_eval_batches_per_pass": eval_batches,
+          "step_ms": ms, "step_ms_median_after_first": steady, "step_wall_ms": wall,
+          "frames_per_s_device": args.batch_size / (steady / 1e3),
+          "frames_per_s_end_to_end": YOLO_TIMED_STEPS * args.batch_size / (sum(wall[1:]) / 1e3),
+          "max_memory_allocated_bytes": peak, "sm_clock_power_temperature": card_during,
+          "step_profile": step_profile,
+          "losses": step_losses, "overfit_losses": overfit,
+          "card": card["nvidia_smi"]})
+    return val, cli_launches, os.path.join(ck_dir, "best.pt")
+
+
+def phase_yolo_eval(card, val, best_path):
+    """The eval pass of the trained weights: best.pt through
+    load_yolo_checkpoint, the val split through make_yolo_eval_fn in batches
+    of 8 (the tail padded) on the card, one hard_nms_keep launch per batch;
+    every batch's detections equal the CPU path (select_detections with the
+    plain NMS) fed the card's network outputs and their decode, and so does
+    the 2D mAP; the CPU's own decode of those outputs within the printed
+    tolerances; the card's NMS at the eval's shape (8 x 512) equals the plain
+    version bit for bit, timed. Returns the (8, 512) record and the pass's
+    launches."""
+    import math
+
+    from sfa3d_tpu_torch.cli.yolo_train import evaluate
+    from sfa3d_tpu_torch.eval.map2d import evaluate_map2d
+    from sfa3d_tpu_torch.models.yolov8 import load_yolo_checkpoint
+    from sfa3d_tpu_torch.parallel.yolo_step import make_yolo_eval_fn
+
+    model = load_yolo_checkpoint(best_path).to(DEVICE)
+    eval_fn = make_yolo_eval_fn(model, device=DEVICE)
+    seen = []  # the network's outputs of every eval batch, on the host
+    hook = model.register_forward_hook(lambda mod, a, out: seen.append([(b.cpu(), c.cpu()) for b, c in out]))
+    val_dev = {**val, "images": torch.from_numpy(val["images"]).to(DEVICE)}
+    batch = YOLO_NMS_SHAPE[0]
+    fusion_loops.hard_nms_keep.launches = 0  # the eval pass: the main path
+    got_map = evaluate(eval_fn, val_dev, batch, YOLO_CLASSES)
+    launches = fusion_loops.hard_nms_keep.launches
+    hook.remove()
+    n = val["images"].shape[0]
+    if launches != math.ceil(n / batch) or len(seen) != launches:
+        raise AssertionError(f"hard_nms_keep launched {launches} times for {math.ceil(n / batch)} eval batches")
+
+    # the CPU path fed the card's network outputs, batch by batch: the
+    # selection (top-k, class-offset NMS with the plain loop, top 100) on the
+    # card's decoded boxes and scores must equal the card's bit for bit; the
+    # CPU's own decode of the same outputs differs by libm ulps (exp, the
+    # 16-bin sums), held within YOLO_DECODE_ATOL / YOLO_SCORE_ATOL, and the
+    # detections that difference changes are counted
+    dets_cpu, decode_err, score_err, n_valid, full_cpu_diff = [], 0.0, 0.0, 0, 0
+    for bi, levels_cpu in enumerate(seen):
+        imgs = val_dev["images"][bi * batch:(bi + 1) * batch]
+        if imgs.shape[0] < batch:
+            imgs = torch.cat([imgs, imgs[-1:].expand(batch - imgs.shape[0], *imgs.shape[1:])], 0)
+        nhwc = [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in levels_cpu]
+        with torch.no_grad():
+            gpu = [t.cpu() for t in eval_fn(imgs)]
+            boxes_g, scores_g = decode_predictions([(b.to(DEVICE), c.to(DEVICE)) for b, c in nhwc])
+            cpu = select_detections(boxes_g.cpu(), scores_g.cpu(), conf_thresh=0.001, iou_thresh=0.45,
+                                    max_det=100, pre_nms=512)
+            boxes_c, scores_c = decode_predictions(nhwc)
+            full = select_detections(boxes_c, scores_c, conf_thresh=0.001, iou_thresh=0.45, max_det=100,
+                                     pre_nms=512)
+        decode_err = max(decode_err, ((boxes_g.cpu() - boxes_c).abs()
+                                      / (YOLO_DECODE_ATOL + YOLO_DECODE_RTOL * boxes_c.abs())).max().item())
+        score_err = max(score_err, (scores_g.cpu() - scores_c).abs().max().item())
+        if not all(torch.equal(g, c) for g, c in zip(gpu, cpu)):
+            raise AssertionError(f"eval batch {bi}: the card's detections differ from the CPU selection of the "
+                                 f"same decoded outputs ({int(gpu[3].sum())} vs {int(cpu[3].sum())} valid)")
+        full_cpu_diff += int((full[3] != gpu[3]).sum()) + int(((full[2] != gpu[2]) & gpu[3]).sum())
+        n_valid += int(gpu[3].sum())
+        for j in range(min(batch, n - bi * batch)):
+            keep = cpu[3][j].numpy() & (cpu[1][j].numpy() > 0.0)
+            dets_cpu.append({"boxes": cpu[0][j].numpy()[keep], "scores": cpu[1][j].numpy()[keep],
+                             "classes": cpu[2][j].numpy()[keep]})
+    if decode_err > 1.0 or score_err > YOLO_SCORE_ATOL:
+        raise AssertionError(f"decode card vs CPU on the same outputs: boxes {decode_err} of their tolerance, "
+                             f"scores {score_err}")
+    gts = [{"boxes": val["boxes"][i][val["mask"][i]], "classes": val["labels"][i][val["mask"][i]]}
+           for i in range(n)]
+    want_map = evaluate_map2d(dets_cpu, gts, num_classes=YOLO_CLASSES)
+    map_err = max((abs(got_map[k] - want_map[k]) for k in want_map if not np.isnan(want_map[k])), default=0.0)
+    if map_err > AP_TOL:
+        raise AssertionError(f"2D mAP card vs CPU: {got_map} vs {want_map}")
+
+    # the NMS kernel at the eval's shape, on the inputs the eval pass gives
+    # it (recorded from one eval batch), bit for bit, and its times
+    from sfa3d_tpu_torch.fusion import nms as nms_module
+
+    imgs = val_dev["images"][:batch]
+    given = []
+    nms_module.fusion_loops = types.SimpleNamespace(  # hard_nms's view of the kernel module, recording
+        hard_nms_keep=lambda b, v, thr: given.append((b.clone(), v.clone())) or fusion_loops.hard_nms_keep(b, v, thr))
+    eval_fn(imgs)
+    nms_module.fusion_loops = fusion_loops
+    (sboxes, svalid), = given
+    if tuple(sboxes.shape[:2]) != YOLO_NMS_SHAPE:
+        raise AssertionError(f"the eval's NMS input is {tuple(sboxes.shape[:2])}, not {YOLO_NMS_SHAPE}")
+    call = lambda: fusion_loops.hard_nms_keep(sboxes, svalid, 0.45)  # noqa: E731
+    plain = lambda: fusion_loops.hard_nms_keep_plain(sboxes, svalid, 0.45)  # noqa: E731
+    keep = plain()
+    err = max_abs_err(call(), keep)
+    if err != 0:
+        raise AssertionError(f"hard_nms_keep at {YOLO_NMS_SHAPE} differs from its plain version by {err}")
+    kept_before = torch.cumsum(keep.int(), 1) - keep.int()
+    n_iou = int((kept_before * svalid).sum().item())
+    bytes_moved = sboxes.numel() * 4 + 2 * svalid.numel()
+    bound, bound_by = loop_bound(bytes_moved, n_iou)
+    dms = device_ms(call, kernel=LOOP_ENTRIES["hard_nms_keep"][1])
+    if dms is None:
+        raise AssertionError("the profiler saw no hard_nms_keep_kernel launch at the eval's shape")
+    shape_rec = {"shape": list(YOLO_NMS_SHAPE), "valid_candidates": int(svalid.sum().item()),
+                 "kept": int(keep.sum().item()), "max_abs_err": err, "ms": cuda_ms(call), "device_ms": dms,
+                 "plain_ms": cuda_ms(plain, reps=5, warmup=1), "bound_ms": bound, "bound_by": bound_by,
+                 "ious_needed": n_iou, "bytes": bytes_moved, "dependent_steps": dependent_steps(svalid)}
+    eval_ms = cuda_ms(lambda: eval_fn(imgs), reps=10)
+    emit({"phase": "yolo_eval", "checkpoint": "best.pt via load_yolo_checkpoint", "val_frames": n,
+          "eval_batches": launches, "hard_nms_keep_launches": launches, "valid_detections": n_valid,
+          "decode_box_max_err_share_of_tol": decode_err, "decode_score_max_abs_err": score_err,
+          "slots_differing_on_the_cpu_decode": full_cpu_diff, "box_atol": YOLO_DECODE_ATOL,
+          "box_rtol": YOLO_DECODE_RTOL, "score_atol": YOLO_SCORE_ATOL, "map2d": got_map, "map2d_max_err": map_err,
+          "eval_ms_per_batch": eval_ms, "hard_nms_keep_at_eval_shape": shape_rec, "card": card["nvidia_smi"]})
+    return shape_rec, launches
+
+
+def _iou_boxes(rng, n):
+    b = np.zeros((n, 7), np.float32)
+    b[:, 0], b[:, 1], b[:, 2] = rng.uniform(0, 10, n), rng.uniform(-5, 5, n), rng.uniform(-2, 0, n)
+    b[:, 3], b[:, 4], b[:, 5] = rng.uniform(1, 2, n), rng.uniform(0.5, 3, n), rng.uniform(0.5, 5, n)
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def _seeded_eval_frames(rng, n_frames=16):
+    """Ground truth with difficulty levels and detections near it (jittered
+    by 0.15 m) plus far false positives with projected heights: every class,
+    bucket and the height rule see work. Returns (detections, ground truths)."""
+    dets, gts = [], []
+    for _ in range(n_frames):
+        m = int(rng.integers(2, 8))
+        g = _iou_boxes(rng, m)
+        g[:, 0], g[:, 1] = rng.uniform(5, 45, m), rng.uniform(-15, 15, m)
+        cls = rng.integers(0, 3, m)
+        gts.append({"boxes": g, "classes": cls, "difficulty": rng.integers(1, 5, m)})
+        extra = _iou_boxes(rng, 3)
+        extra[:, 0] += 10
+        d = np.concatenate([g + rng.normal(0, 0.15, g.shape).astype(np.float32), extra]).astype(np.float32)
+        dets.append({"boxes": d, "scores": rng.uniform(0.1, 1.0, len(d)).astype(np.float32),
+                     "classes": np.concatenate([cls, rng.integers(0, 3, 3)]),
+                     "heights": rng.uniform(10, 80, len(d)).astype(np.float32)})
+    return dets, gts
+
+
+def _flat_results(res, prefix=""):
+    out = {}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            out.update(_flat_results(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = float(v)
+    return out
+
+
+def phase_kitti_eval(card, root, tmp_root):
+    """The KITTI AP evaluation through its CLI (sfa3d_tpu_torch.cli.eval) on
+    the card and with --platform cpu, on one KFPN-18 checkpoint (random
+    weights, heatmap biases bumped so that detections exist) and
+    KITTI_EVAL_FRAMES val frames: every AP, AOS and Easy / Moderate / Hard
+    number within AP_TOL; bev_raster_reduce launched once per frame on the
+    card; the rotated BEV and 3D IoU on the card within ROT_IOU_TOL of the
+    CPU on seeded boxes."""
+    import os
+
+    from sfa3d_tpu_torch.cli import eval as eval_cli
+    from sfa3d_tpu_torch.data.kitti import KittiDataset
+    from sfa3d_tpu_torch.eval import evaluate_kitti_ap
+    from sfa3d_tpu_torch.ops.rotated_iou import pairwise_iou_3d, pairwise_iou_bev_rotated
+    from sfa3d_tpu_torch.pipeline import detect_frames
+
+    model = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED))
+    bump_heatmap_bias(model)
+    ckpt = os.path.join(tmp_root, "kfpn_eval.pth")
+    torch.save(model.state_dict(), ckpt)
+    args = ["--dataset_dir", root, "--pretrained_path", ckpt, "--num_samples", str(KITTI_EVAL_FRAMES)]
+    bev_raster_reduce.launches = 0  # the card's eval run: the main path
+    t0 = time.perf_counter()
+    res_gpu = eval_cli.main(args)
+    gpu_s = time.perf_counter() - t0
+    launches = bev_raster_reduce.launches
+    if launches != KITTI_EVAL_FRAMES:
+        raise AssertionError(f"bev_raster_reduce launched {launches} times for {KITTI_EVAL_FRAMES} frames")
+    t0 = time.perf_counter()
+    res_cpu = eval_cli.main(args + ["--platform", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    got, want = _flat_results(res_gpu), _flat_results(res_cpu)
+    if got.keys() != want.keys():
+        raise AssertionError(f"AP keys differ: {sorted(got)} vs {sorted(want)}")
+    ap_err = max(abs(got[k] - want[k]) for k in want)
+    if ap_err > AP_TOL:
+        raise AssertionError(f"KITTI AP card vs CPU differs by {ap_err}: {got} vs {want}")
+    # the evaluator alone on detections near the ground truth, where AP is
+    # not 0: the IoU matrices on the card against the CPU
+    seeded = _seeded_eval_frames(np.random.default_rng(SEED + 8))
+    seeded_err = {}
+    for metric in ("3d", "bev"):
+        g_res = _flat_results(evaluate_kitti_ap(*seeded, metric=metric, with_aos=True, device=DEVICE))
+        c_res = _flat_results(evaluate_kitti_ap(*seeded, metric=metric, with_aos=True, device="cpu"))
+        seeded_err[metric] = max(abs(g_res[k] - c_res[k]) for k in c_res)
+        if seeded_err[metric] > AP_TOL or not 0 < c_res["mAP"] < 1 or g_res.keys() != c_res.keys():
+            raise AssertionError(f"seeded {metric} AP card vs CPU: {g_res} vs {c_res}")
+    sample = KittiDataset(root, mode="val", hflip_prob=0.0, num_samples=1)[0]
+    n_det = int(detect_frames(model.to(DEVICE).eval(), sample.points[None], sample.valid[None],
+                              device=DEVICE)["mask"].sum())
+    if n_det == 0:
+        raise AssertionError("the eval's first frame has no detection")
+    rng = np.random.default_rng(SEED + 9)
+    a, b = _iou_boxes(rng, 256), _iou_boxes(rng, 256)
+    iou_err = {}
+    for name, fn, cols in (("3d", pairwise_iou_3d, slice(None)), ("bev", pairwise_iou_bev_rotated, [0, 1, 4, 5, 6])):
+        g = fn(torch.from_numpy(a[:, cols]).to(DEVICE), torch.from_numpy(b[:, cols]).to(DEVICE)).cpu()
+        c = fn(torch.from_numpy(a[:, cols]), torch.from_numpy(b[:, cols]))
+        iou_err[name] = (g - c).abs().max().item()
+        if iou_err[name] > ROT_IOU_TOL or int((c > 0).sum()) < 1000:
+            raise AssertionError(f"rotated {name} IoU card vs CPU differs by {iou_err[name]}")
+    emit({"phase": "kitti_eval", "frames": KITTI_EVAL_FRAMES, "detections_first_frame": n_det,
+          "ap_tol": AP_TOL, "ap_max_abs_err": ap_err, "results": got, "seeded_ap_max_abs_err": seeded_err,
+          "seeded_map": c_res["mAP"], "card_seconds": gpu_s,
+          "card_seconds_per_frame": gpu_s / KITTI_EVAL_FRAMES, "cpu_seconds": cpu_s,
+          "bev_raster_reduce_launches": launches, "rotated_iou_tol": ROT_IOU_TOL,
+          "rotated_iou_max_abs_err": iou_err, "card": card["nvidia_smi"]})
+    return launches
 
 
 def main() -> int:
@@ -1577,8 +2081,12 @@ def main() -> int:
     counts_rec["launches"] = phase_counts(card, scans)
     counts_rec["path"] = "count map of the 16 served scans: cell_indices_and_keys -> bev_cell_counts"
     fused = phase_fused_serve(card)
+    phase_yolo_train_parity(card)
     with tempfile.TemporaryDirectory() as tmp_root:
-        train_launches, train_batches, train_err = phase_train(card, tmp_root)
+        train_launches, train_batches, train_err, root = phase_train(card, tmp_root)
+        val, yolo_cli_launches, best_path = phase_yolo_train(card, root, f"{tmp_root}/yolo")
+        nms_eval_shape, yolo_eval_launches = phase_yolo_eval(card, val, best_path)
+        kitti_launches = phase_kitti_eval(card, root, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -1588,7 +2096,13 @@ def main() -> int:
     counts_rec["launches_by_path"] = {"lidar_serve": served_count_launches,
                                       "fused_serve": fused["bev_cell_counts"]}
     raster_rec["launches_by_path"] = {"lidar_serve": lidar_raster_launches,
-                                      "fused_serve": fused["bev_raster_reduce"], "train": train_launches}
+                                      "fused_serve": fused["bev_raster_reduce"], "train": train_launches,
+                                      "kitti_eval": kitti_launches}
+    raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
+    nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
+    nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
+                                   "yolo_train_cli": yolo_cli_launches}
+    nms_rec["at_yolo_eval_shape"] = nms_eval_shape
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     print(card["nvidia_smi"], flush=True)

@@ -6,7 +6,8 @@
 An epoch loop over `create_train_loader` batches (per-epoch reseeded
 sampling and augmentation), one accumulated train step per batch
 (`parallel/train_step.py`), validation loss and a checkpoint every
-`--checkpoint_freq` epochs, console + file logging, TensorBoard when a
+`--checkpoint_freq` epochs (with `--val_ap`, the KITTI AP of the val split
+at each checkpoint, through `cli/eval.py`), console + file logging, TensorBoard when a
 writer is importable, resume (`--resume_path`, `--auto_resume`) and
 weights-only loading (`--pretrained_path`), and the learning-rate curve as
 a PNG when matplotlib is importable. It runs on cuda (raising without a
@@ -127,6 +128,8 @@ def main(argv=None):
             if epoch % configs.runtime.checkpoint_freq == 0:
                 path = save_checkpoint(configs.checkpoints_dir, configs.runtime.saved_fn, state, epoch)
                 logger.info(f"save a checkpoint at {path}")
+                if configs.runtime.val_ap:
+                    maybe_val_ap(configs, path, epoch, logger, tb_writer)
                 prune_checkpoints(configs.checkpoints_dir, configs.runtime.saved_fn,
                                   configs.runtime.keep_checkpoints)
     finally:
@@ -134,6 +137,36 @@ def main(argv=None):
             tb_writer.close()
         logger.close()
     return None
+
+
+def maybe_val_ap(configs, ckpt_path, epoch, logger, tb_writer):
+    """The val split's detection AP at a checkpoint (--val_ap): the eval CLI
+    run in-process on the checkpoint just saved (its EMA weights when EMA is
+    on), on the training device; logs mAP, mAOS and the per-class AP.
+    Returns the eval CLI's results."""
+    from sfa3d_tpu_torch.cli.eval import main as eval_main
+
+    ap_args = ["--dataset_dir", configs.data.dataset_dir, "--split", "val", "--arch", configs.model.arch,
+               "--pretrained_path", ckpt_path, "--K", str(configs.decode.K),
+               "--peak_thresh", str(configs.decode.peak_thresh)]
+    if configs.runtime.platform:
+        ap_args += ["--platform", configs.runtime.platform]
+    if configs.runtime.val_ap_samples:
+        ap_args += ["--num_samples", str(configs.runtime.val_ap_samples)]
+    ema = configs.optim.ema_decay > 0.0
+    if ema:  # with EMA on, the EMA weights are what training delivers
+        ap_args += ["--use_ema"]
+    res = eval_main(ap_args)
+    per_class = {k: v for k, v in res.items() if k.startswith("AP_") and not isinstance(v, dict)}
+    logger.info(
+        f"val AP{' (EMA weights)' if ema else ''} (epoch {epoch}): mAP {res['mAP']:.4f} "
+        f"mAOS {res.get('mAOS', 0.0):.4f} " + " ".join(f"{k} {v:.4f}" for k, v in sorted(per_class.items()))
+    )
+    if tb_writer is not None:
+        tb_writer.add_scalar("Val_mAP", res["mAP"], epoch)
+        tb_writer.add_scalar("Val_mAOS", res["mAOS"], epoch)
+        tb_writer.add_scalars("Val_AP", per_class, epoch)
+    return res
 
 
 def validate(val_loader, state, eval_step) -> float:

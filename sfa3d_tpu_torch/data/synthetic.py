@@ -1,13 +1,18 @@
 """Synthetic KITTI-like scenes, the port of `sfa3d_tpu/data/synthetic.py`
 without cv2: ground plane + clutter + car-like box clusters with matching
 labels (`synthetic_scene`, the same numpy draws as the JAX package, so one
-seed gives the same scene byte for byte), a mini KITTI layout on disk
-(`write_mini_kitti`) and padded benchmark batches (`synthetic_batch_points`).
+seed gives the same scene byte for byte), camera frames rendered from the
+scene (`render_camera_image`), a mini KITTI layout on disk
+(`write_mini_kitti`, camera frames as PNG through `data/png.py`) and padded
+benchmark batches (`synthetic_batch_points`).
 
-`write_mini_kitti` writes no camera frames: the JAX package renders them
-with cv2 and skips them when cv2 is absent, which is what the port does
-(training never reads them). The labels' 2D boxes, truncation, occlusion
-and alpha still come from the scene geometry (`annotate_labels_camera`).
+The renderer draws what the JAX one draws with cv2, in numpy: the
+velodyne-point dots are the same pixels, and each box's convex hull is
+filled by a scanline test of pixel centres and outlined by the pixels
+within 1 px of a hull edge (cv2's `fillConvexPoly` and 2-px `polylines`
+rasterise the edges by their own rules, so pixels next to a hull edge may
+differ). The labels' 2D boxes, truncation, occlusion and alpha come from
+the scene geometry (`annotate_labels_camera`).
 """
 
 from __future__ import annotations
@@ -150,6 +155,120 @@ def synthetic_scene(
     return points, np.asarray(labels, np.float32)
 
 
+def convex_hull(points: np.ndarray) -> np.ndarray:
+    """(N, 2) integer points -> the convex hull's vertices (M, 2) int64,
+    counter-clockwise in image axes (Andrew's monotone chain; collinear
+    points dropped)."""
+    pts = sorted({(int(x), int(y)) for x, y in np.asarray(points)})
+    if len(pts) <= 2:
+        return np.asarray(pts, np.int64).reshape(-1, 2)
+
+    def cross(o, a, b):
+        return (a[0] - o[0]) * (b[1] - o[1]) - (a[1] - o[1]) * (b[0] - o[0])
+
+    lower, upper = [], []
+    for p in pts:
+        while len(lower) >= 2 and cross(lower[-2], lower[-1], p) <= 0:
+            lower.pop()
+        lower.append(p)
+    for p in reversed(pts):
+        while len(upper) >= 2 and cross(upper[-2], upper[-1], p) <= 0:
+            upper.pop()
+        upper.append(p)
+    return np.asarray(lower[:-1] + upper[:-1], np.int64)
+
+
+def _hull_window(img: np.ndarray, hull: np.ndarray, margin: int):
+    """The pixel rows and columns of `img` within `margin` of the hull's
+    bounding box, as (ys (h, 1), xs (1, w), row slice, column slice), or
+    None when the box lies outside the image."""
+    h, w = img.shape[:2]
+    x0, y0 = max(int(hull[:, 0].min()) - margin, 0), max(int(hull[:, 1].min()) - margin, 0)
+    x1, y1 = min(int(hull[:, 0].max()) + margin, w - 1), min(int(hull[:, 1].max()) + margin, h - 1)
+    if x0 > x1 or y0 > y1:
+        return None
+    ys = np.arange(y0, y1 + 1, dtype=np.int64)[:, None]
+    xs = np.arange(x0, x1 + 1, dtype=np.int64)[None, :]
+    return ys, xs, slice(y0, y1 + 1), slice(x0, x1 + 1)
+
+
+def fill_convex(img: np.ndarray, hull: np.ndarray, color) -> None:
+    """Paint every pixel whose centre lies inside or on the convex polygon
+    `hull` (integer vertices, either orientation) with `color`, in place."""
+    win = _hull_window(img, hull, 0)
+    if win is None or len(hull) < 3:
+        return
+    ys, xs, rows, cols = win
+    area2 = sum(int(hull[i, 0]) * int(hull[i - 1, 1]) - int(hull[i - 1, 0]) * int(hull[i, 1])
+                for i in range(len(hull)))
+    sign = 1 if area2 <= 0 else -1  # inside is left of each edge for one orientation
+    inside = np.ones((ys.shape[0], xs.shape[1]), bool)
+    for i in range(len(hull)):
+        (ax, ay), (bx, by) = hull[i - 1], hull[i]
+        inside &= sign * ((bx - ax) * (ys - ay) - (by - ay) * (xs - ax)) >= 0
+    img[rows, cols][inside] = color
+
+
+def outline_convex(img: np.ndarray, hull: np.ndarray, color, half_width: float = 1.0) -> None:
+    """Paint the pixels whose centre lies within `half_width` of an edge of
+    the closed polygon `hull` (a 2-px outline at the default), in place."""
+    win = _hull_window(img, hull, int(np.ceil(half_width)))
+    if win is None:
+        return
+    ys, xs, rows, cols = win
+    on = np.zeros((ys.shape[0], xs.shape[1]), bool)
+    for i in range(len(hull)):
+        (ax, ay), (bx, by) = hull[i - 1].astype(np.float64), hull[i].astype(np.float64)
+        dx, dy = bx - ax, by - ay
+        length2 = dx * dx + dy * dy
+        t = np.clip(((xs - ax) * dx + (ys - ay) * dy) / length2, 0.0, 1.0) if length2 else 0.0
+        on |= (xs - ax - t * dx) ** 2 + (ys - ay - t * dy) ** 2 <= half_width * half_width
+    img[rows, cols][on] = color
+
+
+def render_camera_image(points: np.ndarray, labels: np.ndarray,
+                        P: np.ndarray, hw: Tuple[int, int] = (375, 1242)) -> np.ndarray:
+    """A synthetic camera frame consistent with the scene, (H, W, 3) RGB
+    uint8: velodyne points become intensity-shaded 2 x 2 dots and each
+    labelled box a filled class-coloured convex hull with a bright 2-px
+    outline, painted far to near. `P` is a 3 x 4 rect-frame projection (P2
+    for the left camera, a P3 with the stereo baseline for the right). The
+    JAX package's renderer returns the same frame in BGR."""
+    h, w = hw
+    P = np.asarray(P, np.float64).reshape(3, 4)
+    img = np.full((h, w, 3), 28, np.uint8)
+
+    V2C = np.asarray(cnf.Tr_velo_to_cam[:3], np.float64).reshape(3, 4)
+    R0 = np.asarray(cnf.R0[:3, :3], np.float64)
+    rect = (R0 @ (V2C[:, :3] @ points[:, :3].T.astype(np.float64) + V2C[:, 3:4])).T
+    infront = rect[:, 2] > 1.0
+    rect, inten = rect[infront], points[infront, 3]
+    uvz = (P[:, :3] @ rect.T + P[:, 3:4]).T
+    uv = uvz[:, :2] / uvz[:, 2:3]
+    ui = np.round(uv[:, 0]).astype(np.int64)
+    vi = np.round(uv[:, 1]).astype(np.int64)
+    inb = (ui >= 0) & (ui < w - 1) & (vi >= 0) & (vi < h - 1)
+    ui, vi = ui[inb], vi[inb]
+    shade = (70 + 180 * np.clip(inten[inb], 0, 1)).astype(np.uint8)
+    for du in (0, 1):
+        for dv in (0, 1):
+            img[vi + dv, ui + du] = shade[:, None]
+
+    rgb_colors = {0: (230, 80, 80), 1: (90, 200, 90), 2: (60, 160, 230)}
+    if len(labels):
+        cam = np.asarray(lidar_to_camera_box(labels[:, 1:8].astype(np.float64)))
+        for j in np.argsort(-cam[:, 2]):  # far to near: near boxes cover far ones
+            x, y, z, bh, bw, bl, ry = cam[j]
+            corners = compute_box_3d((bh, bw, bl), (x, y, z), ry)
+            if (corners[:, 2] <= 1.0).any():
+                continue
+            hull = convex_hull(project_to_image(corners, P))
+            color = rgb_colors[int(labels[j, 0]) % 3]
+            fill_convex(img, hull, color)
+            outline_convex(img, hull, tuple(min(255, c + 90) for c in color))
+    return img
+
+
 def annotate_labels_camera(labels: np.ndarray, P: np.ndarray,
                            hw: Tuple[int, int] = (375, 1242),
                            grid: int = 4):
@@ -210,11 +329,15 @@ def annotate_labels_camera(labels: np.ndarray, P: np.ndarray,
 
 def write_mini_kitti(root: str, n_frames: int = 4, seed: int = 0,
                      splits=("train", "val", "test"),
+                     cameras: bool = True,
                      range_falloff: float = 0.0) -> str:
     """Write a tiny KITTI-layout dataset under `root` from synthetic scenes:
-    velodyne .bin, calib .txt, label_2 .txt and ImageSets (no camera frames,
-    see the module docstring). `splits` is a tuple of split names that all
-    list frames 0..n_frames-1, or a dict {split: range of frame ids}."""
+    velodyne .bin, calib .txt, label_2 .txt, ImageSets and, with `cameras`,
+    the stereo camera frames image_2 / image_3 as PNG (image_3 through a P3
+    with the 0.54 m KITTI baseline). `splits` is a tuple of split names that
+    all list frames 0..n_frames-1, or a dict {split: range of frame ids}."""
+    from sfa3d_tpu_torch.data.png import write_png_rgb
+
     for sub in ("training", "testing"):
         for d in ("velodyne", "calib", "label_2", "image_2", "image_3"):
             os.makedirs(os.path.join(root, sub, d), exist_ok=True)
@@ -242,6 +365,10 @@ def write_mini_kitti(root: str, n_frames: int = 4, seed: int = 0,
             points.tofile(os.path.join(root, sub, "velodyne", f"{i:06d}.bin"))
             with open(os.path.join(root, sub, "calib", f"{i:06d}.txt"), "w") as f:
                 f.write(calib_txt)
+            if cameras:
+                for cam_dir, P in (("image_2", P2), ("image_3", P3)):
+                    write_png_rgb(os.path.join(root, sub, cam_dir, f"{i:06d}.png"),
+                                  render_camera_image(points, labels, P))
             if sub == "training":
                 anns = annotate_labels_camera(labels, P2)
                 cam = np.asarray(lidar_to_camera_box(labels[:, 1:]))

@@ -15,7 +15,8 @@
 `Detector` returns a list of dicts {'class_id', 'class_name', 'score', 'x',
 'y', 'z', 'h', 'w', 'l', 'yaw'} in the metric velodyne frame.
 `FusedDetector` runs the camera + LiDAR fusion program on a scan, an RGB
-image and its calibration.
+image and its calibration. `write_kitti_results` writes `format_detections`
+records as a KITTI submission-format label file.
 """
 
 from __future__ import annotations
@@ -52,6 +53,24 @@ def format_detections(out: Dict, i: int) -> List[Dict]:
             }
         )
     return dets
+
+
+def write_kitti_results(dets: List[Dict], calib, path: str) -> None:
+    """Write detections (`format_detections` records) as a KITTI
+    submission-format label file: one camera-frame row per detection with
+    its score appended, the layout the official devkit evaluates."""
+    from sfa3d_tpu_torch.geometry.transforms import lidar_to_camera_box
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for d in dets:
+            box = np.asarray([[d["x"], d["y"], d["z"], d["h"], d["w"], d["l"], d["yaw"]]])
+            x, y, z, h, w, l, ry = np.asarray(lidar_to_camera_box(box, calib.V2C, calib.R0, calib.P2))[0]
+            f.write(
+                f"{d['class_name']} 0.00 0 0.00 0 0 50 50 "
+                f"{h:.2f} {w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} "
+                f"{ry:.2f} {d['score']:.4f}\n"
+            )
 
 
 class Detector:

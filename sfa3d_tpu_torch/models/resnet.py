@@ -34,10 +34,11 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     flax's, and the variance is brought from the unbiased to the biased one
     with the old running_var. Eval mode is nn.BatchNorm2d's. The state_dict keys
     (weight, bias, running_mean, running_var, num_batches_tracked) are
-    nn.BatchNorm2d's."""
+    nn.BatchNorm2d's. `eps` and `momentum` are flax's (YOLOv8: 1e-3, 0.97)."""
 
-    def __init__(self, channels: int):
-        super().__init__(channels, eps=BN_EPS)
+    def __init__(self, channels: int, eps: float = BN_EPS, momentum: float = FLAX_MOMENTUM):
+        super().__init__(channels, eps=eps, momentum=1 - momentum)
+        self.flax_momentum = momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -45,10 +46,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         n = x.numel() // x.shape[1]  # values per channel
         # copies, since autograd keeps what F.batch_norm was given
         mean, var = self.running_mean.clone(), self.running_var.clone()
-        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1 - FLAX_MOMENTUM, self.eps)
+        out = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1 - self.flax_momentum, self.eps)
         with torch.no_grad():
-            # var now holds old + 0.1 * batch_var * n / (n - 1)
-            old = FLAX_MOMENTUM * self.running_var
+            # var now holds old + (1 - momentum) * batch_var * n / (n - 1)
+            old = self.flax_momentum * self.running_var
             self.running_mean.copy_(mean)
             self.running_var.copy_(old + (var - old) * ((n - 1) / n))
             self.num_batches_tracked.add_(1)

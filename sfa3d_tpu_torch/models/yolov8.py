@@ -13,7 +13,10 @@ list `model` of 23 layers whose parameters carry the keys `model.N.*`
 (`model.22` is the head), so an ultralytics-layout state_dict loads with
 strict=True. The public functions (`forward_levels`, `decode_predictions`,
 `select_detections`) keep the JAX package's NHWC layout and fixed shapes.
-BatchNorm uses flax's eps 1e-3.
+BatchNorm is flax's (eps 1e-3, momentum 0.97, the biased running variance:
+`FlaxBatchNorm2d`). `export_ultralytics_state_dict` /
+`save_ultralytics_checkpoint` write the ultralytics layout that
+`load_yolo_checkpoint` and the JAX package's `load_yolo_variables` read.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from torch import nn
 
 from sfa3d_tpu_torch.device import Device, resolve_device
 from sfa3d_tpu_torch.models.kfpn import _lecun_normal_
+from sfa3d_tpu_torch.models.resnet import FlaxBatchNorm2d
 
 # (depth_mult, width_mult, max_channels)
 SCALES = {
@@ -44,7 +48,7 @@ STEM_WIDTH_TO_SCALE = {16: "n", 32: "s", 48: "m", 64: "l", 80: "x"}
 REG_MAX = 16
 STRIDES = (8, 16, 32)
 BN_EPS = 1e-3  # flax BatchNorm epsilon of the JAX model
-BN_MOMENTUM = 0.03  # torch convention == flax momentum 0.97
+BN_MOMENTUM = 0.97  # flax convention: running = 0.97 * running + 0.03 * batch
 
 # ultralytics layer index -> the JAX model's module name
 _UL_BACKBONE = {
@@ -76,7 +80,7 @@ class ConvBnSiLU(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = FlaxBatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.silu(self.bn(self.conv(x)))
@@ -257,12 +261,13 @@ def forward_levels(model: YOLOv8, images: torch.Tensor) -> List[Tuple[torch.Tens
 
 def dfl_expectation(box_logits: torch.Tensor) -> torch.Tensor:
     """(..., 4 * 16) DFL logits -> (..., 4) ltrb distances: the expectation
-    of a float32 softmax over the 16 bins of each side, written as JAX's
-    softmax (exp(x - max) / sum)."""
-    x = box_logits.float().reshape(*box_logits.shape[:-1], 4, REG_MAX)
+    of a softmax over the 16 bins of each side, written as JAX's softmax
+    (exp(x - max) / sum), in float32 (float64 logits stay float64)."""
+    dtype = torch.promote_types(box_logits.dtype, torch.float32)
+    x = box_logits.to(dtype).reshape(*box_logits.shape[:-1], 4, REG_MAX)
     e = torch.exp(x - x.amax(-1, keepdim=True))
     probs = e / e.sum(-1, keepdim=True)
-    bins = torch.arange(REG_MAX, dtype=torch.float32, device=x.device)
+    bins = torch.arange(REG_MAX, dtype=dtype, device=x.device)
     return (probs * bins).sum(-1)
 
 
@@ -273,7 +278,7 @@ def decode_predictions(level_outputs: Sequence[Tuple[torch.Tensor, torch.Tensor]
     all_boxes, all_scores = [], []
     for (box_logits, cls_logits), stride in zip(level_outputs, STRIDES):
         b, h, w, _ = box_logits.shape
-        ltrb = dfl_expectation(box_logits)  # (B, H, W, 4)
+        ltrb = dfl_expectation(box_logits.float())  # (B, H, W, 4), float32 as JAX's decode
         ys = (torch.arange(h, dtype=torch.float32, device=ltrb.device) + 0.5)[None, :, None]
         xs = (torch.arange(w, dtype=torch.float32, device=ltrb.device) + 0.5)[None, None, :]
         x1 = (xs - ltrb[..., 0]) * stride
@@ -450,6 +455,31 @@ def read_yolo_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if any(k.startswith("model.model.") for k in sd):
         sd = {(k[len("model."):] if k.startswith("model.") else k): v for k, v in sd.items()}
     return {k: v for k, v in sd.items() if k.startswith("model.")}
+
+
+def export_ultralytics_state_dict(model: YOLOv8,
+                                  params: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """The model as an ultralytics-layout state_dict of float32 CPU tensors:
+    the `model.N.*` keys, the BatchNorm `num_batches_tracked` counters and
+    the fixed DFL kernel `model.22.dfl.conv.weight`, as ultralytics' own
+    trainer writes them. `params` (a name -> tensor map, e.g. the EMA
+    weights) replaces the model's trainable parameters; the BatchNorm
+    statistics stay the model's own."""
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    for k, v in (params or {}).items():
+        if k not in sd:
+            raise KeyError(f"{k} is not a parameter of the model")
+        sd[k] = v.detach().cpu().clone()
+    return {k: v.float() if v.is_floating_point() else v for k, v in sd.items()}
+
+
+def save_ultralytics_checkpoint(model: YOLOv8, path: str,
+                                params: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """`torch.save` of `export_ultralytics_state_dict(model, params)`: a
+    `.pt` that `load_yolo_checkpoint` (and the JAX package's
+    `load_yolo_variables`) read. Returns `path`."""
+    torch.save(export_ultralytics_state_dict(model, params), path)
+    return path
 
 
 def load_yolo_checkpoint(path: str) -> YOLOv8:

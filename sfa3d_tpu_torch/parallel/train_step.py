@@ -55,8 +55,10 @@ class TrainState:
 
 def create_train_state(model: nn.Module, tx: OptimizerSpec, ema: bool = False) -> TrainState:
     """A fresh state over `model`'s parameters. The EMA starts as a real
-    copy of the parameters."""
-    ema_params = ({k: p.detach().clone() for k, p in model.named_parameters()} if ema else None)
+    copy of the trainable parameters (a frozen one, such as YOLOv8's fixed
+    DFL kernel, has none)."""
+    ema_params = ({k: p.detach().clone() for k, p in model.named_parameters() if p.requires_grad}
+                  if ema else None)
     return TrainState(step=0, model=model, optimizer=tx.build(model.parameters()), tx=tx,
                       ema_params=ema_params)
 
@@ -126,8 +128,8 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, ema_decay: float = 0.0,
                 raise ValueError("ema_decay > 0 requires create_train_state(..., ema=True)")
             one_minus_d = float(np.float32(1.0) - ema_decay_at(state.step + 1, ema_decay, ema_tau))
             with torch.no_grad():
-                for k, p in m.named_parameters():
-                    e = state.ema_params[k]
+                for k, e in state.ema_params.items():
+                    p = m.get_parameter(k)
                     e.add_(one_minus_d * (p.detach().to(e.dtype) - e))
         state.step += 1
         return state, {k: v / n_micro for k, v in totals.items()}

@@ -14,6 +14,12 @@ the JAX schedules compute in float32 outside x64 mode, so the two agree
 within one float32 rounding (relative 6e-8) there and to float64 rounding
 in x64 mode.
 
+The YOLO trainer's schedule is optax's `warmup_cosine_decay_schedule`
+(`warmup_cosine_decay_schedule`) and its optimizer optax's `adamw`
+(`AdamW`, an OptimizerSpec of kind "adamw", made by `yolo_adamw`): the
+decay goes to the parameters with more than one dimension only, as the JAX
+trainer's mask does.
+
 Optimizers: SGD with Nesterov momentum (`torch.optim.SGD(nesterov=True)`,
 optax.sgd(nesterov=True): the same trace g + m * t and update g + m * t'),
 or Adam with weight decay as L2 added to the gradient (torch
@@ -111,13 +117,18 @@ class OptimizerSpec:
     `apply_schedule` sets its learning rate (and scheduled momentum) for
     the update at `step`."""
 
-    kind: str  # "sgd" | "adam"
+    kind: str  # "sgd" | "adam" | "adamw"
     lr: Callable[[int], float]
     momentum_schedule: Optional[Callable[[int], float]] = None
     momentum: float = 0.949
     weight_decay: float = 0.0
 
     def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        if self.kind == "adamw":  # decay on ndim > 1 only; frozen parameters left out
+            params = [p for p in params if p.requires_grad]
+            groups = [{"params": [p for p in params if p.dim() > 1], "weight_decay": self.weight_decay},
+                      {"params": [p for p in params if p.dim() <= 1], "weight_decay": 0.0}]
+            return AdamW([g for g in groups if g["params"]], lr=self.lr(0))
         if self.kind == "sgd":
             m = self.momentum_schedule(0) if self.momentum_schedule else self.momentum
             return torch.optim.SGD(params, lr=self.lr(0), momentum=m, nesterov=True)
@@ -142,3 +153,76 @@ def create_optimizer(cfg: OptimConfig, num_epochs: int, steps_per_epoch: int) ->
     if cfg.optimizer_type == "adam":
         return OptimizerSpec("adam", lr, weight_decay=cfg.weight_decay)
     raise ValueError(f"unknown optimizer type: {cfg.optimizer_type}")
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0) -> Callable[[int], float]:
+    """optax.warmup_cosine_decay_schedule: a linear ramp from init_value to
+    peak_value over warmup_steps, then a cosine decay to end_value that
+    ends at decay_steps (which include the warmup). Step count -> value."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = decay_steps - warmup_steps
+    if cosine_steps <= 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed warmup_steps ({warmup_steps})")
+
+    def sched(step):
+        step = int(step)
+        if step < warmup_steps:
+            frac = 1.0 - min(max(step, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        count = min(float(step - warmup_steps), float(cosine_steps))
+        cosine = 0.5 * (1.0 + math.cos(math.pi * count / cosine_steps))
+        return peak_value * ((1.0 - alpha) * cosine + alpha)
+
+    return sched
+
+
+class AdamW(torch.optim.Optimizer):
+    """optax.adamw(lr, b1, b2, eps, eps_root=0, weight_decay) as a torch
+    optimizer: mu and nu are Adam's moments, the update is
+    mu_hat / (sqrt(nu_hat) + eps) plus weight_decay * p, and the parameter
+    moves by -lr times it (the decay is added to the Adam direction before
+    the learning rate, unlike torch.optim.AdamW). Each group's "lr" is set
+    from the schedule before a step (`OptimizerSpec.apply_schedule`); the
+    parameters that take no decay are a group with weight_decay 0."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                g = p.grad
+                mu, nu = state["exp_avg"], state["exp_avg_sq"]
+                mu.copy_((1 - b1) * g + b1 * mu)
+                nu.copy_((1 - b2) * g ** 2 + b2 * nu)
+                state["step"] += 1
+                t = state["step"]
+                mu_hat = mu / (1 - b1 ** t)
+                nu_hat = nu / (1 - b2 ** t)
+                update = mu_hat / (torch.sqrt(nu_hat) + group["eps"])
+                if group["weight_decay"]:
+                    update = update + group["weight_decay"] * p
+                p.add_(-group["lr"] * update)
+        return None
+
+
+def yolo_adamw(lr: float, weight_decay: float, warmup_epochs: float, epochs: int,
+               steps_per_epoch: int) -> "OptimizerSpec":
+    """The JAX YOLO trainer's optimizer: a warmup (at least one step) and
+    cosine decay to lr / 100 over every step of the run, AdamW with the
+    decay masked to ndim > 1."""
+    sched = warmup_cosine_decay_schedule(
+        0.0, lr, warmup_steps=max(1, int(warmup_epochs * steps_per_epoch)),
+        decay_steps=steps_per_epoch * epochs, end_value=lr * 0.01)
+    return OptimizerSpec("adamw", sched, weight_decay=weight_decay)

@@ -34,10 +34,10 @@ N_FRAMES = 4
 
 @pytest.fixture(scope="module")
 def mini_kitti(tmp_path_factory):
-    """The same mini KITTI written by both packages (the JAX one without
-    camera frames, as the port writes none)."""
+    """The same mini KITTI written by both packages, without camera frames
+    (tests/test_torch_png.py holds the rendered frames)."""
     root = tmp_path_factory.mktemp("mini")
-    port = synthetic.write_mini_kitti(str(root / "port"), n_frames=N_FRAMES, seed=5)
+    port = synthetic.write_mini_kitti(str(root / "port"), n_frames=N_FRAMES, seed=5, cameras=False)
     ref = jsynthetic.write_mini_kitti(str(root / "jax"), n_frames=N_FRAMES, seed=5, cameras=False)
     return port, ref
 

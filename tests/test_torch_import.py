@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: it imports with JAX, the JAX package, cv2
-and ultralytics absent, its sources import none of them, and its entry
+"""The PyTorch port stands alone: it imports with JAX, the JAX package, cv2,
+PIL and ultralytics absent, its sources import none of them, and its entry
 points never fall back to the CPU on their own."""
 
 import pkgutil
@@ -15,7 +15,7 @@ import sfa3d_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "sfa3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu|cv2|ultralytics)\b", re.MULTILINE)
+FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu|cv2|PIL|ultralytics)\b", re.MULTILINE)
 
 
 def _port_modules():
@@ -30,18 +30,20 @@ def test_port_imports_without_jax():
                  "fusion.pipeline", "geometry.calibration", "runtime.serving", "ops.targets",
                  "losses.losses", "data.loader", "data.kitti", "data.synthetic", "data.augment",
                  "parallel.train_step", "runtime.schedules", "runtime.checkpoint", "runtime.logger",
-                 "config.train", "cli.train"):
+                 "config.train", "cli.train", "data.png", "data.yolo2d", "losses.yolo_loss",
+                 "parallel.yolo_step", "eval.map2d", "eval.kitti_eval", "ops.rotated_iou", "cli.yolo_train",
+                 "cli.eval"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
-        "for banned in ('jax', 'sfa3d_tpu', 'cv2', 'ultralytics'):\n"
+        "for banned in ('jax', 'sfa3d_tpu', 'cv2', 'PIL', 'ultralytics'):\n"
         "    sys.modules[banned] = None\n"
         "import importlib\n"
         f"for name in {modules!r} + ['sfa3d_tpu_torch', 'chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "import sfa3d_tpu_torch.fusion as f\n"
         "assert f.build_fused_pipeline and f.hard_nms and f.fuse_frame\n"
-        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.', 'cv2.'))]\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.', 'cv2.', 'PIL.'))]\n"
         "print('ok')\n"
     )
     res = subprocess.run(
@@ -127,6 +129,26 @@ def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="lies on"):
         make_train_step(model, tx, device="cuda")
+
+
+def test_yolo_training_and_eval_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    from sfa3d_tpu_torch.cli.eval import main as eval_main
+    from sfa3d_tpu_torch.cli.yolo_train import main as yolo_main
+    from sfa3d_tpu_torch.eval import evaluate_kitti_ap
+    from sfa3d_tpu_torch.models.yolov8 import YOLOv8
+    from sfa3d_tpu_torch.parallel.yolo_step import make_yolo_epoch_fn, make_yolo_eval_fn
+    from sfa3d_tpu_torch.runtime.schedules import yolo_adamw
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = YOLOv8("n", 3)
+    tx = yolo_adamw(1e-3, 5e-4, 1.0, 4, 1)
+    for call in (lambda: make_yolo_epoch_fn(model, tx, (64, 128)), lambda: make_yolo_eval_fn(model),
+                 lambda: yolo_main(["--dataset_dir", str(tmp_path)]),
+                 lambda: eval_main(["--dataset_dir", str(tmp_path)]), lambda: evaluate_kitti_ap([], [])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    make_yolo_epoch_fn(model, tx, (64, 128), device="cpu")
+    make_yolo_eval_fn(model, device="cpu")
 
 
 def test_count_kernel_has_no_silent_fallback():

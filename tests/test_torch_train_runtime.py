@@ -294,21 +294,24 @@ def test_checkpoint_files_and_loading(tmp_path, init_state_dict):
         checkpoint.load_checkpoint(str(orbax_dir), plain_state)
 
 
-@pytest.mark.parametrize("flag", [["--mesh_shape", "2"], ["--val_ap"], ["--imagenet_pretrained"],
-                                  ["--dataset", "argoverse"], ["--profile_dir", "/tmp/p"],
-                                  ["--compilation_cache"], ["--arch", "resnet_18"]])
+@pytest.mark.parametrize("flag", [["--mesh_shape", "2"], ["--compilation_cache", "/tmp/c"],
+                                  ["--imagenet_pretrained"], ["--dataset", "argoverse"],
+                                  ["--profile_dir", "/tmp/p"], ["--compilation_cache"], ["--arch", "resnet_18"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
         parse_train_configs(flag)
     cfg = parse_train_configs(["--mesh_shape", "1"])
     assert cfg.model.compute_dtype == "bfloat16" and cfg.runtime.batch_size == 16
     assert cfg.optim.effective_batch == 64 and cfg.runtime.platform is None
+    cfg = parse_train_configs(["--val_ap", "--val_ap_samples", "3"])  # ported: runs cli/eval at each checkpoint
+    assert cfg.runtime.val_ap and cfg.runtime.val_ap_samples == 3
 
 
 def test_train_cli_runs_and_detector_loads_its_checkpoint(tmp_path):
     """4 synthetic frames, batch 2, effective batch 2, one epoch, on the CPU
     at the full raster: two train steps, the validation loss, a checkpoint
-    with EMA weights that Detector loads."""
+    with EMA weights that Detector loads, and --val_ap: the KITTI AP of 2
+    val frames on that checkpoint's EMA weights (cli/eval.py)."""
     from sfa3d_tpu_torch.cli.train import main
     from sfa3d_tpu_torch.data.synthetic import synthetic_scene, write_mini_kitti
     from sfa3d_tpu_torch.detector import Detector
@@ -317,13 +320,14 @@ def test_train_cli_runs_and_detector_loads_its_checkpoint(tmp_path):
     main(["--dataset_dir", root, "--root-dir", str(tmp_path / "run"), "--batch_size", "2",
           "--effective_batch", "2", "--num_epochs", "1", "--checkpoint_freq", "1", "--platform", "cpu",
           "--compute_dtype", "float32", "--num_workers", "2", "--ema_decay", "0.99", "--print_freq", "1",
-          "--saved_fn", "cli"])
+          "--saved_fn", "cli", "--val_ap", "--val_ap_samples", "2", "--peak_thresh", "0.0"])
     ckdir = tmp_path / "run" / "checkpoints" / "cli"
     path = str(ckdir / "Model_cli_epoch_1.pth")
     payload = torch.load(path, weights_only=True)
     assert payload["step"] == 2 and payload["epoch"] == 1 and "ema_params" in payload
     log = (tmp_path / "run" / "logs" / "cli" / "logger_cli.txt").read_text()
     assert "val_loss" in log and "save a checkpoint" in log
+    assert "val AP (EMA weights) (epoch 1): mAP" in log
     for use_ema in (False, True):
         det = Detector(checkpoint=path, device="cpu", use_ema=use_ema)
         dets = det.detect(synthetic_scene(0)[0])
