@@ -1,6 +1,6 @@
 """Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths,
-its KFPN and YOLOv8 training paths and its evaluation on one NVIDIA GPU and
-check them.
+its KFPN and YOLOv8 training paths, its evaluation and the serve CLI with
+per-stream tracking on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -102,6 +102,25 @@ Phases, each printing one JSON line:
           every AP within 1e-6, one bev_raster_reduce launch per frame; the
           evaluator on seeded detections near the ground truth (AP above 0)
           card vs CPU; rotated BEV and 3D IoU card vs CPU within 1e-5
+  track_kernels  the tracker's association loop (csrc/track_associate.cu)
+          vs its plain PyTorch version on the card, bit for bit (det_match,
+          trk_used): crowded and tied IoUs at (1, 50, 64) and (8, 50, 64),
+          every pair ineligible, max_tracks 256; event, device, plain ms
+  track   a seeded moving scene (30 frames, 20 objects, K = 50, 64 slots;
+          jitter, dropouts, false positives, a pi-flipped yaw) through
+          track_sequence on the card and the CPU: ids, alive, confirmed and
+          next_id equal, boxes / velocities / scores within 1e-3, CLEAR-MOT
+          counts equal (MOTP within 1e-3), one track_associate launch a
+          frame; ms per tracker_step
+  serve_cli  python -m sfa3d_tpu_torch.cli.serve --track over stdio, in
+          this process, KFPN-18 at 608 x 608 (random weights, heatmap and
+          dim biases raised), 2 streams x 8 ordered frames, a track_reset
+          and a bad request, on the card and with --platform cpu: replies in
+          request order, detections within 1e-3, track ids and confirmed
+          flags equal, one bev_raster_reduce launch per served batch and one
+          track_associate launch per tracked frame; bucket-1 batch ms with
+          --track on and off; one TCP round trip on the card; --arch
+          resnet_18 card vs CPU
 Then one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
@@ -126,7 +145,7 @@ import torch
 
 from sfa3d_tpu_torch import _build
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.detector import Detector, FusedDetector
+from sfa3d_tpu_torch.detector import Detector, FusedDetector, format_detections
 from sfa3d_tpu_torch.fusion.batch import _fuse_one, _unletterbox_xywh
 from sfa3d_tpu_torch.fusion.boxes2d import project_boxes_to_image
 from sfa3d_tpu_torch.fusion.nms import _stable_desc_order
@@ -2069,6 +2088,387 @@ def phase_kitti_eval(card, root, tmp_root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# tracking and the serve CLI
+# ---------------------------------------------------------------------------
+
+TRACK_K, TRACK_T = 50, 64  # the serve CLI's K detections and the tracker's max_tracks
+TRACK_IOU_MIN = 0.01  # the serve CLI's --track_iou_min default
+TRACK_FRAMES, TRACK_OBJECTS = 30, 20  # the track phase's seeded moving scene
+TRACK_TOL = 1e-3  # track boxes, velocities, scores card vs CPU (m, rad, m/frame): cuBLAS / cuSOLVER vs MKL / LAPACK rounding
+SERVE_STREAMS, SERVE_FRAMES = 2, 8  # the serve_cli phase: ordered frames per stream
+DIM_BIAS = (1.5, 1.6, 3.9)  # m added to the KFPN's dim biases: car-sized boxes (random weights give millimetres)
+ASSOC_KERNEL = "track_associate_kernel"
+
+
+def track_iou_inputs(rng, b, k, t, kind):
+    """(iou (b, k, t) float32 gated like the tracker's, order (b, k) int32):
+    'crowded' mixes ineligible pairs (-1), exact ties on a few levels, values
+    at iou_min and a few tracks that are every detection's best; 'ineligible'
+    is all -1."""
+    if kind == "ineligible":
+        iou = np.full((b, k, t), -1.0, np.float32)
+    else:
+        iou = rng.uniform(0, 1, (b, k, t)).astype(np.float32)
+        levels = np.float32([0.0, np.float32(TRACK_IOU_MIN), 0.25, 0.5, 0.9])
+        tie = rng.random((b, k, t)) < 0.3
+        iou[tie] = rng.choice(levels, int(tie.sum()))
+        iou[rng.random((b, k, t)) < 0.4] = -1.0
+        hot = rng.integers(0, t, (b, 3))
+        for f in range(b):
+            iou[f][:, hot[f]] = np.float32(0.95)  # crowded: tied best columns
+    order = np.stack([rng.permutation(k) for _ in range(b)]).astype(np.int32)
+    return iou, order
+
+
+def assoc_bound(b, k, t):
+    bytes_moved = b * k * t * 4 + b * k * 4 * 2 + b * t  # iou and order in, det_match and trk_used out
+    ops = 2 * b * k * t  # a select and a compare per (step, column)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved
+
+
+def phase_track_kernels(card):
+    """track_associate vs its plain version on the card, bit for bit on
+    det_match and trk_used: crowded and tied IoUs at (1, 50, 64) and (8, 50,
+    64), every pair ineligible, and a larger max_tracks (1, 50, 256).
+    Times at the served (1, 50, 64). Returns the kernel record."""
+    from sfa3d_tpu_torch.ops.track_associate import track_associate, track_associate_plain
+
+    rng = np.random.default_rng(SEED + 11)
+    cases = {"served_1x50x64": (1, TRACK_K, TRACK_T, "crowded"), "batch_8x50x64": (8, TRACK_K, TRACK_T, "crowded"),
+             "ineligible_8x50x64": (8, TRACK_K, TRACK_T, "ineligible"),
+             "max_tracks_1x50x256": (1, TRACK_K, 256, "crowded")}
+    checks, tensors = {}, {}
+    for name, (b, k, t, kind) in cases.items():
+        iou, order = (torch.from_numpy(a).to(DEVICE) for a in track_iou_inputs(rng, b, k, t, kind))
+        got = track_associate(iou, order, TRACK_IOU_MIN)
+        want = track_associate_plain(iou, order, TRACK_IOU_MIN)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"track_associate disagrees with its plain version on {name}")
+        checks[name] = {"shape": [b, k, t], "matches": int((want[0] >= 0).sum().item())}
+        tensors[name] = (iou, order)
+    if checks["ineligible_8x50x64"]["matches"] != 0 or checks["served_1x50x64"]["matches"] == 0:
+        raise AssertionError(f"the association inputs exercised nothing: {checks}")
+
+    times = {}
+    for name, (iou, order) in tensors.items():
+        b, k, t = iou.shape
+        call = lambda: track_associate(iou, order, TRACK_IOU_MIN)  # noqa: E731
+        dms = device_ms(call, kernel=ASSOC_KERNEL)
+        if dms is None:
+            raise AssertionError(f"the profiler saw no {ASSOC_KERNEL} launch at {name}")
+        bound_ms, bound_by, bytes_moved = assoc_bound(b, k, t)
+        times[name] = {"ms": cuda_ms(call), "device_ms": dms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "per_step_us": dms * 1e3 / k, "bytes": bytes_moved}
+    iou, order = tensors["served_1x50x64"]
+    served = times["served_1x50x64"]
+    rec = {
+        "name": "track_associate", "route": "cuda", "source": "sfa3d_tpu_torch/csrc/track_associate.cu",
+        "replaces": "sfa3d_tpu/tracking/tracker.py:131", "launches": None, "max_abs_err": 0.0,
+        "ms": served["ms"], "device_ms": served["device_ms"],
+        "plain_ms": cuda_ms(lambda: track_associate_plain(iou, order, TRACK_IOU_MIN), reps=5, warmup=1),
+        "bound_ms": served["bound_ms"], "bound_by": served["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes a greedy sequential assignment",
+        "bound_share_device": served["bound_ms"] / served["device_ms"],
+        "design": "one warp per frame, used flags in shared memory, shuffle argmax per step",
+        "shape": [1, TRACK_K, TRACK_T], "dependent_steps": TRACK_K, "times_by_shape": times,
+    }
+    emit({"phase": "track_kernels", "checks": checks, "times": times, "plain_ms": rec["plain_ms"],
+          "card": card["nvidia_smi"]})
+    return rec
+
+
+def make_track_scene(rng, n_frames=TRACK_FRAMES, n_objects=TRACK_OBJECTS, k=TRACK_K):
+    """A seeded moving scene: objects of three classes at constant velocity
+    (0.2-1.2 m a frame), detections jittered from the ground truth by 5 cm,
+    10% dropped, 0-4 false positives a frame, one object whose yaw is
+    reported pi-flipped every other frame, rows shuffled. Returns (boxes (F,
+    K, 8), scores (F, K), valid (F, K), ground truth [(ids, centres)] per
+    frame)."""
+    dims = np.array([[1.76, 0.66, 0.84], [1.52, 1.63, 3.88], [1.73, 0.60, 1.76]])
+    # objects on a grid of lanes, so that no two start on top of each other
+    start = np.stack([5.0 + 4.0 * (np.arange(n_objects) % 10), -16.0 + 16.0 * (np.arange(n_objects) // 10)], 1)
+    start += rng.uniform(-0.5, 0.5, start.shape)
+    speed = rng.uniform(0.2, 1.2, n_objects)
+    heading = rng.choice([0.0, np.pi], n_objects) + rng.uniform(-0.1, 0.1, n_objects)
+    vel = np.stack([speed * np.cos(heading), 0.05 * speed * np.sin(heading)], 1)
+    cls = rng.integers(0, 3, n_objects)
+    boxes = np.zeros((n_frames, k, 8), np.float32)
+    scores = np.zeros((n_frames, k), np.float32)
+    gt = []
+    for f in range(n_frames):
+        xy = start + vel * f
+        rows = []
+        for o in range(n_objects):
+            if rng.random() < 0.1:
+                continue
+            yaw = heading[o] + (np.pi if o == 0 and f % 2 else 0.0)
+            rows.append([cls[o], *(xy[o] + rng.normal(0, 0.05, 2)), -1.0, *dims[cls[o]], yaw])
+        for _ in range(rng.integers(0, 5)):
+            rows.append([rng.integers(0, 3), rng.uniform(0, 50), rng.uniform(-25, 25), -1.0, *dims[1],
+                         rng.uniform(-np.pi, np.pi)])
+        perm = rng.permutation(len(rows))
+        boxes[f, :len(rows)] = np.asarray(rows, np.float32)[perm]
+        scores[f, :len(rows)] = rng.uniform(0.3, 1.0, len(rows))
+        gt.append((np.arange(n_objects), xy))
+    valid = np.arange(k)[None] < (scores > 0).sum(1)[:, None]
+    return boxes, scores, valid, gt
+
+
+def phase_track(card):
+    """The seeded moving scene through track_sequence on the card and on the
+    CPU: ids, alive, confirmed and next_id equal, boxes / velocities / scores
+    within TRACK_TOL, CLEAR-MOT equal, one track_associate launch a frame;
+    ms per tracker_step on both."""
+    from sfa3d_tpu_torch.ops.track_associate import track_associate
+    from sfa3d_tpu_torch.tracking import clear_mot, track_sequence, tracker_output_to_frames
+
+    boxes, scores, valid, gt = make_track_scene(np.random.default_rng(SEED + 12))
+    run = lambda device: track_sequence(boxes, scores, valid, max_tracks=TRACK_T, iou_min=TRACK_IOU_MIN,  # noqa: E731
+                                        max_age=3, min_hits=2, device=device)
+    track_associate.launches = 0
+    card_out = run(DEVICE)
+    torch.cuda.synchronize()
+    launches = track_associate.launches
+    cpu_out = run(torch.device("cpu"))
+    if launches != TRACK_FRAMES:
+        raise AssertionError(f"track_associate launched {launches} times for {TRACK_FRAMES} frames")
+    card_host = {k: v.cpu().numpy() for k, v in card_out.items()}
+    cpu_host = {k: v.numpy() for k, v in cpu_out.items()}
+    for key in ("ids", "alive", "confirmed"):
+        if not np.array_equal(card_host[key], cpu_host[key]):
+            raise AssertionError(f"track {key} differ between the card and the CPU")
+    # every birth is alive in its own frame's output, and ids count up from 0
+    next_id = {dev: int(out["ids"].max()) + 1 for dev, out in (("card", card_host), ("cpu", cpu_host))}
+    if next_id["card"] != next_id["cpu"]:
+        raise AssertionError(f"next_id {next_id}")
+    alive = cpu_host["alive"]
+    err = {key: float(np.abs(card_host[key][alive] - cpu_host[key][alive]).max()) for key in ("boxes", "velocities", "scores")}
+    if max(err.values()) > TRACK_TOL:
+        raise AssertionError(f"track floats card vs CPU: {err}")
+    mot_card = clear_mot(gt, tracker_output_to_frames(card_out))
+    mot_cpu = clear_mot(gt, tracker_output_to_frames(cpu_out))
+    # counts and the rates made of them equal; MOTP, a mean distance, within TRACK_TOL
+    if {k: v for k, v in mot_card.items() if k != "motp"} != {k: v for k, v in mot_cpu.items() if k != "motp"} \
+            or abs(mot_card["motp"] - mot_cpu["motp"]) > TRACK_TOL or mot_card["mota"] <= 0.5:
+        raise AssertionError(f"CLEAR-MOT card {mot_card} vs CPU {mot_cpu}")
+
+    card_ms = host_ms(lambda: run(DEVICE), reps=3, warmup=1) / TRACK_FRAMES
+    cpu_ms = host_ms(lambda: run(torch.device("cpu")), reps=3, warmup=1) / TRACK_FRAMES
+    profile = step_profile(boxes, scores, valid)
+    emit({"phase": "track", "frames": TRACK_FRAMES, "objects": TRACK_OBJECTS, "K": TRACK_K, "max_tracks": TRACK_T,
+          "next_id": next_id["cpu"], "track_associate_launches": launches,
+          "float_max_abs_err": err, "tolerance": TRACK_TOL, "clear_mot": mot_card,
+          "motp_abs_err": abs(mot_card["motp"] - mot_cpu["motp"]),
+          "ms_per_step_card": card_ms, "ms_per_step_cpu": cpu_ms, "cpu_threads": torch.get_num_threads(),
+          "step_profile": profile, "card": card["nvidia_smi"]})
+    return launches
+
+
+def step_profile(boxes, scores, valid, steps=10):
+    """torch.profiler over `steps` tracker steps on the card, after the
+    scene's first 10 frames: kernel launches and device time per step, and
+    the PyTorch ops of most host time (where a launch-bound step goes)."""
+    from sfa3d_tpu_torch.tracking import init_tracks, tracker_step
+
+    state = init_tracks(TRACK_T, DEVICE)
+    step = lambda st, f: tracker_step(st, boxes[f], scores[f], valid[f], iou_min=TRACK_IOU_MIN)[0]  # noqa: E731
+    for f in range(10):
+        state = step(state, f)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for f in range(10, 10 + steps):
+            state = step(state, f)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    device_us = sum(self_device_us(e) for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+    ops = sorted((e for e in events if e.key.startswith("aten::")), key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"profiled_ms_per_step": wall_ms, "launches_per_step": launches / steps,
+            "kernel_device_ms_per_step": device_us / steps / 1e3,
+            "top_ops_self_cpu_ms_per_step": {e.key: e.self_cpu_time_total / steps / 1e3 for e in ops},
+            "top_ops_calls_per_step": {e.key: e.count / steps for e in ops}}
+
+
+def bump_dim_bias(model: torch.nn.Module) -> None:
+    with torch.no_grad():
+        for i in range(3):
+            getattr(model, f"fpn{i}_dim")[2].bias += torch.tensor(DIM_BIAS, device=next(model.parameters()).device)
+
+
+def serve_requests(rng, root):
+    """2 streams x 8 ordered frames, interleaved: each stream one make_scan
+    scan whose points move by 1 cm of noise a frame (a parked sensor), as
+    .bin files; one track_reset on cam0's sixth frame and one bad request."""
+    requests = []
+    for s in range(SERVE_STREAMS):
+        base = make_scan(rng)
+        for f in range(SERVE_FRAMES):
+            pts = base.copy()
+            pts[:, :3] += rng.normal(0, 0.01, (len(pts), 3)).astype(np.float32)
+            path = f"{root}/cam{s}_{f:02d}.bin"
+            pts.tofile(path)
+            requests.append((f, {"id": f"cam{s}-{f}", "lidar": path, "stream": f"cam{s}"}))
+    requests = [r for _, r in sorted(requests, key=lambda fr: fr[0])]
+    requests[2 * 5]["track_reset"] = True  # cam0's sixth frame
+    requests.insert(7, {"id": "bad", "lidar": f"{root}/missing.bin", "stream": "cam1"})
+    return requests
+
+
+def run_serve_cli(argv, requests):
+    """python -m sfa3d_tpu_torch.cli.serve in this process, over stdio.
+    Returns (replies, the server's stats, seconds)."""
+    import io
+
+    from sfa3d_tpu_torch.cli import serve
+
+    stdin = io.StringIO("".join(json.dumps(r) + "\n" for r in requests))
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    stats = serve.main(argv, stdin=stdin, stdout=stdout)
+    seconds = time.perf_counter() - t0
+    return [json.loads(line) for line in stdout.getvalue().splitlines()], stats, seconds
+
+
+def phase_serve_cli(card, tmp_root):
+    """serve --track over stdio on the card against --platform cpu: replies
+    in request order, the bad request answered with an error, detections
+    within 1e-3, track ids and confirmed flags equal; one bev_raster_reduce
+    launch per served batch and one track_associate launch per tracked
+    frame. Then ms per bucket-1 batch and frames/s with --track and without,
+    one TCP round trip on the card, and --arch resnet_18 card vs CPU."""
+    from sfa3d_tpu_torch.cli import serve
+    from sfa3d_tpu_torch.models.centernet_deconv import DeconvCenterNet
+    from sfa3d_tpu_torch.ops.track_associate import track_associate
+    from sfa3d_tpu_torch.runtime.tracking_service import TrackingSessions
+
+    det = Detector(device="cpu", seed=SEED)
+    bump_heatmap_bias(det.model)
+    bump_dim_bias(det.model)
+    ckpt = f"{tmp_root}/Model_fpn_resnet_18_serve.pth"
+    torch.save(det.model.state_dict(), ckpt)
+    requests = serve_requests(np.random.default_rng(SEED + 13), tmp_root)
+    argv = ["--pretrained_path", ckpt, "--track", "--max_delay_ms", "20"]
+
+    bev_raster_reduce.launches = 0  # count the main path's launches only
+    track_associate.launches = 0
+    replies, stats, card_s = run_serve_cli(argv, requests)
+    raster_launches, assoc_launches = bev_raster_reduce.launches, track_associate.launches
+    cpu_replies, _, cpu_s = run_serve_cli(argv + ["--platform", "cpu"], requests)
+
+    if [r["id"] for r in replies] != [r["id"] for r in requests]:
+        raise AssertionError("replies are not in request order")
+    bad = replies[[r["id"] for r in requests].index("bad")]
+    if "error" not in bad:
+        raise AssertionError(f"the bad request got {bad}")
+    tracked = [r for r in replies if "tracks" in r]
+    if len(tracked) != SERVE_STREAMS * SERVE_FRAMES or raster_launches != stats["batches"] or \
+            assoc_launches != len(tracked):
+        raise AssertionError(f"{len(tracked)} tracked replies, {stats['batches']} batches, raster launches "
+                             f"{raster_launches}, track_associate launches {assoc_launches}")
+    det_err, n_tracks, n_dets = 0.0, 0, 0
+    for got, want in zip(replies, cpu_replies):
+        if "error" in got:
+            continue
+        a, b = sorted_rows(got["detections"]), sorted_rows(want["detections"])
+        if a.shape != b.shape:
+            raise AssertionError(f"{got['id']}: {len(a)} detections on the card, {len(b)} on the CPU")
+        det_err = max(det_err, float(np.abs(a - b).max()) if len(a) else 0.0)
+        key = lambda t: (t["track_id"], t["confirmed"])  # noqa: E731
+        if sorted(map(key, got["tracks"])) != sorted(map(key, want["tracks"])):
+            raise AssertionError(f"{got['id']}: track ids or confirmed flags differ from the CPU CLI's")
+        n_tracks += len(got["tracks"])
+        n_dets += len(a)
+    if det_err > 1e-3 or n_tracks == 0:
+        raise AssertionError(f"serve --track: detections vs CPU {det_err}, {n_tracks} tracks")
+    cut = [r["id"] for r in requests].index("cam0-5")
+    ids = lambda rs: {t["track_id"] for r in rs if r.get("stream") == "cam0" for t in r["tracks"]}  # noqa: E731
+    before, after = ids(replies[:cut]), ids(replies[cut:])
+    if not after or before & after:
+        raise AssertionError(f"cam0's scene cut: ids {sorted(before)} before, {sorted(after)} after")
+
+    # ms per bucket-1 batch, --track on against off, on one server
+    args = serve._parse(["--pretrained_path", ckpt, "--track"])
+    server, sessions = serve.build_server(args)
+    try:
+        pts, valid = bev_ops.filter_and_pad_points(np.fromfile(requests[0]["lidar"], np.float32).reshape(-1, 4))
+        one = lambda: format_detections(server.det.detect_batch(pts[None], valid[None]), 0)  # noqa: E731
+        batch_ms_off = host_ms(one)
+        batch_ms_on = host_ms(lambda: sessions.update("timing", one()))
+        step_ms = host_ms(lambda: sessions.update("timing", replies[0]["detections"]))
+    finally:
+        server.stop()
+
+    # one TCP round trip on the card
+    ready, stop, port = threading.Event(), threading.Event(), []
+    thread = threading.Thread(target=serve.main, args=(argv + ["--port", "0"],),
+                              kwargs=dict(ready=lambda p: (port.append(p), ready.set()), stop=stop), daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(300):
+            raise AssertionError("the TCP server never listened")
+        import socket
+
+        with socket.create_connection(("127.0.0.1", port[0]), timeout=300) as conn:
+            f = conn.makefile("rw")
+            for r in requests[:3]:
+                f.write(json.dumps(r) + "\n")
+            f.flush()
+            tcp = [json.loads(f.readline()) for _ in range(3)]
+    finally:
+        stop.set()
+        thread.join(60)
+    if [r["id"] for r in tcp] != [r["id"] for r in requests[:3]] or thread.is_alive():
+        raise AssertionError(f"TCP replies {[r.get('id') for r in tcp]}")
+    tcp_err = max(float(np.abs(sorted_rows(a["detections"]) - sorted_rows(b["detections"])).max())
+                  for a, b in zip(tcp, replies[:3]))
+    tcp_ids = [sorted(t["track_id"] for t in r["tracks"]) for r in tcp]
+    if tcp_err > 1e-3 or tcp_ids != [sorted(t["track_id"] for t in r["tracks"]) for r in replies[:3]] \
+            or not tcp_ids[-1]:
+        raise AssertionError(f"TCP replies differ from the stdio run's: detections by {tcp_err}, tracks {tcp_ids}")
+
+    # --arch resnet_18, one batch on the card against the CPU
+    deconv = DeconvCenterNet().init_weights(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(SEED + 1)
+        for i in (0, 3, 6):  # He-scaled deconv kernels: the init's N(0, 0.001) gives a flat, tied heatmap
+            w = deconv.deconv_layers[i].weight
+            w.copy_(torch.randn(w.shape, generator=gen) * (2.0 / (w.shape[0] * 4)) ** 0.5)
+        deconv.hm_cen[2].bias += HM_BIAS_BUMP
+    deconv_ckpt = f"{tmp_root}/Model_resnet_18_serve.pth"
+    torch.save(deconv.state_dict(), deconv_ckpt)
+    arch = ["--arch", "resnet_18", "--pretrained_path", deconv_ckpt]
+    r18, r18_stats, _ = run_serve_cli(arch, requests[:4])
+    r18_cpu, _, _ = run_serve_cli(arch + ["--platform", "cpu"], requests[:4])
+    r18_err = 0.0
+    for a, b in zip(r18, r18_cpu):
+        ra, rb = sorted_rows(a["detections"]), sorted_rows(b["detections"])
+        if ra.shape != rb.shape or len(ra) == 0:
+            raise AssertionError(f"resnet_18 {a['id']}: {len(ra)} detections on the card, {len(rb)} on the CPU")
+        r18_err = max(r18_err, float(np.abs(ra - rb).max()))
+    if r18_err > 1e-3:
+        raise AssertionError(f"resnet_18 detections card vs CPU differ by {r18_err}")
+
+    emit({"phase": "serve_cli", "requests": len(requests), "streams": SERVE_STREAMS, "frames_per_stream": SERVE_FRAMES,
+          "stats": stats, "bev_raster_reduce_launches": raster_launches,
+          "raster_launches_per_batch": raster_launches / stats["batches"],
+          "track_associate_launches": assoc_launches, "track_associate_launches_per_frame": assoc_launches / len(tracked),
+          "detections": n_dets, "tracks_reported": n_tracks, "detections_max_abs_err_vs_cpu": det_err,
+          "card_seconds": card_s, "cpu_seconds": cpu_s,
+          "batch_ms_bucket1_track_off": batch_ms_off, "batch_ms_bucket1_track_on": batch_ms_on,
+          "tracker_update_ms": step_ms, "frames_per_s_bucket1_track_off": 1e3 / batch_ms_off,
+          "frames_per_s_bucket1_track_on": 1e3 / batch_ms_on,
+          "tcp_max_abs_err_vs_stdio": tcp_err, "resnet_18_max_abs_err_vs_cpu": r18_err,
+          "resnet_18_batches": r18_stats["batches"], "card": card["nvidia_smi"]})
+    return raster_launches, assoc_launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build(card)
@@ -2077,7 +2477,9 @@ def main() -> int:
     pts, valid = phase_raster(card)
     phase_model(card, pts, valid)
     phase_yolo(card)
+    track_rec = phase_track_kernels(card)
     scans, lidar_raster_launches, served_count_launches = phase_serve(card)
+    track_launches = phase_track(card)
     counts_rec["launches"] = phase_counts(card, scans)
     counts_rec["path"] = "count map of the 16 served scans: cell_indices_and_keys -> bev_cell_counts"
     fused = phase_fused_serve(card)
@@ -2087,6 +2489,7 @@ def main() -> int:
         val, yolo_cli_launches, best_path = phase_yolo_train(card, root, f"{tmp_root}/yolo")
         nms_eval_shape, yolo_eval_launches = phase_yolo_eval(card, val, best_path)
         kitti_launches = phase_kitti_eval(card, root, tmp_root)
+        serve_cli_raster_launches, serve_cli_assoc_launches = phase_serve_cli(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -2097,7 +2500,7 @@ def main() -> int:
                                       "fused_serve": fused["bev_cell_counts"]}
     raster_rec["launches_by_path"] = {"lidar_serve": lidar_raster_launches,
                                       "fused_serve": fused["bev_raster_reduce"], "train": train_launches,
-                                      "kitti_eval": kitti_launches}
+                                      "kitti_eval": kitti_launches, "serve_cli": serve_cli_raster_launches}
     raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
     nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
     nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
@@ -2105,8 +2508,11 @@ def main() -> int:
     nms_rec["at_yolo_eval_shape"] = nms_eval_shape
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
+    track_rec["launches"] = serve_cli_assoc_launches
+    track_rec["path"] = "serve --track over stdio: 2 streams x 8 frames, one launch per tracked frame"
+    track_rec["launches_by_path"] = {"serve_cli": serve_cli_assoc_launches, "track": track_launches}
     print(card["nvidia_smi"], flush=True)
-    emit({"kernels": [counts_rec, raster_rec, *loop_recs]})
+    emit({"kernels": [counts_rec, raster_rec, *loop_recs, track_rec]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

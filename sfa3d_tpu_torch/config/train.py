@@ -202,7 +202,7 @@ def refuse_unported(cfg: TrainConfig) -> TrainConfig:
         (rt.profile_dir is not None, "--profile_dir: a jax.profiler trace has no counterpart in the port"),
         (rt.compilation_cache is not None,
          "--compilation_cache: the XLA compilation cache has no counterpart in the port"),
-        (not cfg.model.arch.startswith("fpn_resnet_"), f"--arch {cfg.model.arch}: only fpn_resnet_* is ported"),
+        (not cfg.model.arch.startswith("fpn_resnet_"), f"--arch {cfg.model.arch}: the port trains fpn_resnet_* only"),
     ]
     for hit, msg in refused:
         if hit:

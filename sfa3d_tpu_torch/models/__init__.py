@@ -1,5 +1,6 @@
-"""Models of the port: KFPN on a ResNet backbone, and the clamped sigmoid.
-`create_model` takes the reference's arch strings ('fpn_resnet_18')."""
+"""Models of the port: KFPN and the deconv CenterNet on a ResNet backbone,
+and the clamped sigmoid. `create_model` takes the reference's arch strings
+('fpn_resnet_18', 'resnet_18')."""
 
 from __future__ import annotations
 
@@ -7,16 +8,17 @@ import torch
 
 
 def create_model(arch: str = "fpn_resnet_18", head_conv: int = 64):
-    """Arch string -> KFPN module (CPU, float32, not yet initialised: see
-    `sfa3d_tpu_torch.pipeline.init_detector`). Only the `fpn_resnet_*` archs
-    are ported so far."""
+    """Arch string -> module (CPU, float32, not yet initialised: see
+    `sfa3d_tpu_torch.pipeline.init_detector`): `fpn_resnet_*` is KFPN,
+    `resnet_*` the deconv CenterNet (the reference's dispatch)."""
+    from sfa3d_tpu_torch.models.centernet_deconv import DeconvCenterNet
     from sfa3d_tpu_torch.models.kfpn import KFPN
 
-    if not arch.startswith("fpn_resnet_"):
-        raise ValueError(
-            f"unknown or unported arch: {arch!r} (sfa3d_tpu_torch has fpn_resnet_*)"
-        )
-    return KFPN(num_layers=int(arch.split("_")[-1]), head_conv=head_conv)
+    family, _, depth = arch.rpartition("_")
+    models = {"fpn_resnet": KFPN, "resnet": DeconvCenterNet}
+    if family not in models or not depth.isdigit():
+        raise ValueError(f"unknown arch: {arch!r} (sfa3d_tpu_torch has fpn_resnet_* and resnet_*)")
+    return models[family](num_layers=int(depth), head_conv=head_conv)
 
 
 def clamped_sigmoid(x: torch.Tensor) -> torch.Tensor:

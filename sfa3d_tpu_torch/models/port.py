@@ -5,6 +5,8 @@ port's KFPN and YOLOv8 state_dicts.
 `sfa3d_tpu/models/port.py:217` (`export_kfpn_state_dict`): flax
 `{"params", "batch_stats"}` trees, as numpy, become the reference
 PoseResNet state_dict that `KFPN.load_state_dict(strict=True)` takes.
+`deconv_state_dict_from_jax` does the same for the deconv arch
+(`DeconvCenterNet`, the `resnet_*` archs).
 `yolo_state_dict_from_jax` does the same for YOLOv8 in the ultralytics
 layout.
 
@@ -45,11 +47,8 @@ def _kernel(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(_float(a).transpose(3, 2, 0, 1)))
 
 
-def state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "OrderedDict[str, torch.Tensor]":
-    """JAX KFPN variables (numpy leaves) -> the port's KFPN state_dict."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+def _backbone_from_jax(sd, params, stats, num_layers: int) -> None:
+    """The ResNet backbone's entries (reference names) into `sd`."""
 
     def put_convbn(p, s, torch_conv, torch_bn):
         sd[f"{torch_conv}.weight"] = _kernel(p["conv"]["kernel"])
@@ -75,19 +74,50 @@ def state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "
                 put_convbn(bb_p[f]["downsample"], bb_s[f]["downsample"],
                            f"{t}.downsample.0", f"{t}.downsample.1")
 
+
+def _head_from_jax(sd, node, prefix: str) -> None:
+    sd[f"{prefix}.0.weight"] = _kernel(node["conv1"]["kernel"])
+    sd[f"{prefix}.0.bias"] = _t(node["conv1"]["bias"])
+    sd[f"{prefix}.2.weight"] = _kernel(node["conv2"]["kernel"])
+    sd[f"{prefix}.2.bias"] = _t(node["conv2"]["bias"])
+
+
+def state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "OrderedDict[str, torch.Tensor]":
+    """JAX KFPN variables (numpy leaves) -> the port's KFPN state_dict."""
+    params = variables["params"]
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _backbone_from_jax(sd, params, variables.get("batch_stats", {}), num_layers)
     for lvl in (1, 2, 3):
         node = params[f"conv_up_level{lvl}"]
         sd[f"conv_up_level{lvl}.weight"] = _kernel(node["kernel"])
         sd[f"conv_up_level{lvl}.bias"] = _t(node["bias"])
-
     for idx in range(3):
         for head in HEADS:
-            t = f"fpn{idx}_{head}"
-            node = params[t]
-            sd[f"{t}.0.weight"] = _kernel(node["conv1"]["kernel"])
-            sd[f"{t}.0.bias"] = _t(node["conv1"]["bias"])
-            sd[f"{t}.2.weight"] = _kernel(node["conv2"]["kernel"])
-            sd[f"{t}.2.bias"] = _t(node["conv2"]["bias"])
+            _head_from_jax(sd, params[f"fpn{idx}_{head}"], f"fpn{idx}_{head}")
+    return sd
+
+
+def deconv_state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "OrderedDict[str, torch.Tensor]":
+    """JAX `DeconvCenterNet` variables (numpy leaves) -> the port's
+    DeconvCenterNet state_dict in the reference deconv PoseResNet layout, the
+    inverse of `sfa3d_tpu/models/port.py::port_deconv_state_dict` (:188):
+    deconv i is `deconv_layers.{3i}` (flax kernel (kH, kW, O, I) -> torch
+    (I, O, kH, kW)) and its BatchNorm `deconv_layers.{3i + 1}`; head towers
+    are `{head}.0` / `{head}.2`."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    _backbone_from_jax(sd, params, stats, num_layers)
+    for i in range(3):
+        conv, bn = f"deconv_layers.{3 * i}", f"deconv_layers.{3 * i + 1}"
+        sd[f"{conv}.weight"] = _kernel(params[f"deconv{i}"]["kernel"])
+        sd[f"{bn}.weight"] = _t(params[f"deconv_bn{i}"]["scale"])
+        sd[f"{bn}.bias"] = _t(params[f"deconv_bn{i}"]["bias"])
+        sd[f"{bn}.running_mean"] = _t(stats[f"deconv_bn{i}"]["mean"])
+        sd[f"{bn}.running_var"] = _t(stats[f"deconv_bn{i}"]["var"])
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    for head in HEADS:
+        _head_from_jax(sd, params[f"head_{head}"], head)
     return sd
 
 

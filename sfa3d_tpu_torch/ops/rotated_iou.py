@@ -16,17 +16,27 @@ l along its local x; 3D (x, y, z, h, w, l, yaw) velodyne boxes.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 MAX_VERTS = 8
 _LOCAL = ((0.5, 0.5), (-0.5, 0.5), (-0.5, -0.5), (0.5, -0.5))
 
 
+@functools.lru_cache(maxsize=None)
+def _local_corners(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    # one copy per device and dtype: a copy from pageable host memory
+    # synchronizes the stream; made outside inference mode for any caller
+    with torch.inference_mode(False):
+        return torch.tensor(_LOCAL, dtype=dtype, device=device)
+
+
 def box_corners_bev(boxes: torch.Tensor) -> torch.Tensor:
     """(..., 5) [x, y, w, l, yaw] -> (..., 4, 2) counter-clockwise corners."""
     x, y, w, l, yaw = boxes.unbind(-1)
     c, s = torch.cos(yaw), torch.sin(yaw)
-    local = torch.tensor(_LOCAL, dtype=boxes.dtype, device=boxes.device)
+    local = _local_corners(boxes.dtype, boxes.device)
     lx = local[:, 0] * l[..., None]  # (..., 4)
     ly = local[:, 1] * w[..., None]
     # the rotation is XLA's (4, 2) x (2, 2) dot, which rounds the first

@@ -32,7 +32,8 @@ def test_port_imports_without_jax():
                  "parallel.train_step", "runtime.schedules", "runtime.checkpoint", "runtime.logger",
                  "config.train", "cli.train", "data.png", "data.yolo2d", "losses.yolo_loss",
                  "parallel.yolo_step", "eval.map2d", "eval.kitti_eval", "ops.rotated_iou", "cli.yolo_train",
-                 "cli.eval"):
+                 "cli.eval", "tracking.tracker", "tracking.metrics", "ops.track_associate",
+                 "runtime.tracking_service", "cli.serve", "models.centernet_deconv"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -151,6 +152,18 @@ def test_yolo_training_and_eval_entry_points_raise_without_gpu(monkeypatch, tmp_
     make_yolo_eval_fn(model, device="cpu")
 
 
+def test_tracking_and_serving_entry_points_raise_without_gpu(monkeypatch):
+    from sfa3d_tpu_torch.runtime.tracking_service import TrackingSessions
+    from sfa3d_tpu_torch.tracking import init_tracks, track_sequence
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: init_tracks(8), lambda: TrackingSessions(),
+                 lambda: track_sequence([[[0.0] * 8]], [[0.0]], [[False]])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert init_tracks(8, "cpu").device == torch.device("cpu")
+
+
 def test_count_kernel_has_no_silent_fallback():
     """Only CPU tensors take the plain version; any other device raises."""
     from sfa3d_tpu_torch.ops.bev_counts import bev_cell_counts, bev_raster_reduce
@@ -250,6 +263,38 @@ def test_fusion_loop_failed_launch_raises_never_falls_back(monkeypatch, entry):
     assert fn.launches == before
 
 
+def test_track_associate_failed_launch_raises_never_falls_back(monkeypatch):
+    """The association kernel keeps the contract: a CUDA-typed call whose
+    launch returns a CUDA error raises, runs no plain version and counts no
+    launch; other devices and bad inputs are refused."""
+    from types import SimpleNamespace
+
+    from sfa3d_tpu_torch.ops import track_associate as ta
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ta, "load_library",
+                        lambda name, signatures: SimpleNamespace(track_associate_cuda=lambda *a: 98))
+    monkeypatch.setattr(ta, "track_associate_plain", plain)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
+    cuda = lambda t: torch.Tensor._make_subclass(_CudaTyped, t)  # noqa: E731
+    iou, order = cuda(torch.zeros((2, 8, 16))), cuda(torch.zeros((2, 8), dtype=torch.int32))
+    before = ta.track_associate.launches
+    with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
+        ta.track_associate(iou, order, 0.01)
+    assert ta.track_associate.launches == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ta.track_associate(torch.zeros((1, 8, 16), device="meta"), torch.zeros((1, 8), dtype=torch.int32, device="meta"), 0.01)
+    with pytest.raises(TypeError, match="int32"):
+        ta.track_associate(torch.zeros((1, 8, 16)), torch.zeros((1, 8), dtype=torch.int64), 0.01)
+    with pytest.raises(ValueError, match="at least one track"):
+        ta.track_associate(torch.zeros((1, 8, 0)), torch.zeros((1, 8), dtype=torch.int32), 0.01)
+    big = cuda(torch.zeros((1, 13000, 1)))
+    with pytest.raises(ValueError, match="shared memory"):
+        ta.track_associate(big, cuda(torch.zeros((1, 13000), dtype=torch.int32)), 0.01)
+
+
 def test_fusion_loop_wrappers_check_their_inputs():
     from sfa3d_tpu_torch.ops import fusion_loops
 
@@ -273,6 +318,7 @@ def test_kernel_sources_ship_with_the_package():
 
     assert (_build.CSRC_DIR / "bev_counts.cu").is_file()
     assert (_build.CSRC_DIR / "fusion_loops.cu").is_file()
+    assert (_build.CSRC_DIR / "track_associate.cu").is_file()
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     lib = _build.library_path("bev_counts")
     assert lib.parent == ROOT / "build" / "kernels"

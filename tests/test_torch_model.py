@@ -124,8 +124,8 @@ def test_load_torch_checkpoint_unwraps_and_strips(jax_variables, tmp_path):
 def test_unported_options_raise(tmp_path):
     from sfa3d_tpu_torch.detector import Detector
 
-    with pytest.raises(ValueError, match="unported arch"):
-        create_model("resnet_18")
+    with pytest.raises(ValueError, match="unknown arch"):
+        create_model("dla_34")
     with pytest.raises(ValueError, match="float32 only"):
         Detector(device="cpu", dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="Orbax"):
