@@ -102,16 +102,24 @@ Phases, each printing one JSON line:
           every AP within 1e-6, one bev_raster_reduce launch per frame; the
           evaluator on seeded detections near the ground truth (AP above 0)
           card vs CPU; rotated BEV and 3D IoU card vs CPU within 1e-5
-  track_kernels  the tracker's association loop (csrc/track_associate.cu)
-          vs its plain PyTorch version on the card, bit for bit (det_match,
-          trk_used): crowded and tied IoUs at (1, 50, 64) and (8, 50, 64),
-          every pair ineligible, max_tracks 256; event, device, plain ms
+  track_kernels  the tracker's association loop (csrc/track_associate.cu),
+          both designs (the matrix design and the row design) and the
+          wrapper vs the plain PyTorch version on the card, bit for bit
+          (det_match, trk_used) at iou_min 0.01, 0, -1 and -2: crowded and
+          tied IoUs at (1, 50, 64) and (8, 50, 64), every pair ineligible,
+          max_tracks 256, and crafted cases (signed NaNs and zeros,
+          infinities, values below -1, K above and below T, T = 33, 100,
+          256 and 300, which takes the row design by shape); candidate rows
+          per input; both designs timed in turns at (1, 50, 64), (8, 50, 64)
+          and (1, 50, 256): device, event and host enqueue ms, per chain
+          step; plain ms
   track   a seeded moving scene (30 frames, 20 objects, K = 50, 64 slots;
           jitter, dropouts, false positives, a pi-flipped yaw) through
           track_sequence on the card and the CPU: ids, alive, confirmed and
           next_id equal, boxes / velocities / scores within 1e-3, CLEAR-MOT
           counts equal (MOTP within 1e-3), one track_associate launch a
-          frame; ms per tracker_step
+          frame, the candidate rows of each frame's association; ms per
+          tracker_step
   serve_cli  python -m sfa3d_tpu_torch.cli.serve --track over stdio, in
           this process, KFPN-18 at 608 x 608 (random weights, heatmap and
           dim biases raised), 2 streams x 8 ordered frames, a track_reset
@@ -218,17 +226,21 @@ def self_device_us(evt) -> float:
 
 def device_ms(fn, reps: int = 20, warmup: int = 3, kernel: str = KERNEL_NAME):
     """Mean device time per fn() call of the kernels whose name matches
-    `kernel`, from torch.profiler (CUPTI); None if the profiler saw none."""
+    `kernel`, from torch.profiler (CUPTI); None if the profiler saw none in
+    three profiled windows (now and then one records no kernel)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(self_device_us(e) for e in prof.key_averages() if re.search(kernel, e.key))
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(self_device_us(e) for e in prof.key_averages() if re.search(kernel, e.key))
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
 def host_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -2098,7 +2110,14 @@ TRACK_FRAMES, TRACK_OBJECTS = 30, 20  # the track phase's seeded moving scene
 TRACK_TOL = 1e-3  # track boxes, velocities, scores card vs CPU (m, rad, m/frame): cuBLAS / cuSOLVER vs MKL / LAPACK rounding
 SERVE_STREAMS, SERVE_FRAMES = 2, 8  # the serve_cli phase: ordered frames per stream
 DIM_BIAS = (1.5, 1.6, 3.9)  # m added to the KFPN's dim biases: car-sized boxes (random weights give millimetres)
-ASSOC_KERNEL = "track_associate_kernel"
+ASSOC_KERNEL = r"track_associate_(matrix|row)_kernel"  # either design of csrc/track_associate.cu
+ASSOC_DESIGN_KERNELS = {"matrix": "track_associate_matrix_kernel", "row": "track_associate_row_kernel"}
+ASSOC_IOU_MINS = (TRACK_IOU_MIN, 0.0, -1.0, -2.0)  # at -1 and below, used and ineligible columns match too
+TRACK_SEEDED = {"served_1x50x64": (1, TRACK_K, TRACK_T, "crowded"), "batch_8x50x64": (8, TRACK_K, TRACK_T, "crowded"),
+                "ineligible_8x50x64": (8, TRACK_K, TRACK_T, "ineligible"),
+                "max_tracks_1x50x256": (1, TRACK_K, 256, "crowded")}  # name -> (B, K, T, kind of track_iou_inputs)
+ASSOC_TIMED = ("served_1x50x64", "batch_8x50x64", "max_tracks_1x50x256")
+ASSOC_ENQUEUE_CALLS = 200  # calls per host enqueue timing, with no synchronisation between them
 
 
 def track_iou_inputs(rng, b, k, t, kind):
@@ -2121,6 +2140,52 @@ def track_iou_inputs(rng, b, k, t, kind):
     return iou, order
 
 
+def track_seeded_inputs():
+    """{name: (iou, order)}: the seeded association inputs of track_kernels,
+    as track_iou_inputs makes them from one generator."""
+    rng = np.random.default_rng(SEED + 11)
+    return {name: track_iou_inputs(rng, b, k, t, kind) for name, (b, k, t, kind) in TRACK_SEEDED.items()}
+
+
+def track_crafted_inputs(rng):
+    """{name: (iou (1, k, t) float32, order (1, k) int32)}: crafted
+    association cases of the kinds tests/test_torch_tracking.py crafts (this
+    script imports no test): ties on a few levels, every pair ineligible, one
+    track every detection's best, values at iou_min and a hair under, signed
+    zeros, quiet NaNs of both signs (a row of only NaNs, NaNs beside values
+    above iou_min), infinities, values below -1, more detections than tracks
+    and fewer, T off a multiple of 32, T = 256, and T = 300 (past the matrix
+    design: the wrapper takes the row design)."""
+    f32 = np.float32
+    k, t = 12, 16
+    cases = {"ties": rng.choice(f32([-1.0, 0.0, 0.005, 0.01, 0.3, 0.7]), (k, t)),
+             "all_ineligible": np.full((k, t), -1.0, f32),
+             "zeros_signed": rng.choice(f32([-0.0, 0.0]), (k, t)),
+             "inf_signed": rng.choice(f32([-np.inf, np.inf, -1.0, 0.3, 0.3, 0.9]), (k, t)),
+             "below_minus_one": rng.choice(f32([-7.5, -2.0, -1.5, -1.0, 0.02]), (k, t))}
+    crowd = rng.uniform(0.0, 0.5, (k, t)).astype(f32)
+    crowd[:, 3] = 0.9
+    cases["crowded"] = crowd
+    at = np.full((k, t), -1.0, f32)
+    at[::2, ::3] = f32(TRACK_IOU_MIN)
+    at[1::2, 1::3] = np.nextafter(f32(TRACK_IOU_MIN), f32(0))
+    cases["at_iou_min"] = at
+    nan = rng.uniform(-1.0, 1.0, (k, t)).astype(f32)
+    nan[rng.random((k, t)) < 0.3] = f32(np.nan)
+    nan[rng.random((k, t)) < 0.15] = -f32(np.nan)
+    nan[2] = f32(np.nan)
+    nan[5, ::2] = -f32(np.nan)
+    nan[5, 1::2] = f32(0.8)
+    cases["nan_signed"] = nan
+    for name, (kk, tt) in {"k_over_t_20x5": (20, 5), "k_under_t_4x40": (4, 40), "t_33": (12, 33),
+                           "t_100": (12, 100), "t_256": (12, 256), "row_design_50x300": (50, 300)}.items():
+        m = rng.choice(f32([0.0, 0.01, 0.4, 0.4, 0.95]), (kk, tt))
+        m[rng.random((kk, tt)) < 0.5] = -1.0
+        m[:, tt - 1] = f32(0.97)  # the last column, past the last full warp of columns
+        cases[name] = m
+    return {name: (m[None], rng.permutation(m.shape[0]).astype(np.int32)[None]) for name, m in cases.items()}
+
+
 def assoc_bound(b, k, t):
     bytes_moved = b * k * t * 4 + b * k * 4 * 2 + b * t  # iou and order in, det_match and trk_used out
     ops = 2 * b * k * t  # a select and a compare per (step, column)
@@ -2129,52 +2194,127 @@ def assoc_bound(b, k, t):
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations", bytes_moved
 
 
-def phase_track_kernels(card):
-    """track_associate vs its plain version on the card, bit for bit on
-    det_match and trk_used: crowded and tied IoUs at (1, 50, 64) and (8, 50,
-    64), every pair ineligible, and a larger max_tracks (1, 50, 256).
-    Times at the served (1, 50, 64). Returns the kernel record."""
-    from sfa3d_tpu_torch.ops.track_associate import track_associate, track_associate_plain
+def assoc_direct(iou, order, iou_min, design):
+    """One launch of `design` ("matrix" or "row") past the wrapper's choice
+    by shape, to check and time both designs on the same inputs. Counts no
+    launch. Returns (det_match, trk_used)."""
+    from sfa3d_tpu_torch.ops import track_associate as ta
 
-    rng = np.random.default_rng(SEED + 11)
-    cases = {"served_1x50x64": (1, TRACK_K, TRACK_T, "crowded"), "batch_8x50x64": (8, TRACK_K, TRACK_T, "crowded"),
-             "ineligible_8x50x64": (8, TRACK_K, TRACK_T, "ineligible"),
-             "max_tracks_1x50x256": (1, TRACK_K, 256, "crowded")}
-    checks, tensors = {}, {}
-    for name, (b, k, t, kind) in cases.items():
-        iou, order = (torch.from_numpy(a).to(DEVICE) for a in track_iou_inputs(rng, b, k, t, kind))
-        got = track_associate(iou, order, TRACK_IOU_MIN)
-        want = track_associate_plain(iou, order, TRACK_IOU_MIN)
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            raise AssertionError(f"track_associate disagrees with its plain version on {name}")
-        checks[name] = {"shape": [b, k, t], "matches": int((want[0] >= 0).sum().item())}
-        tensors[name] = (iou, order)
-    if checks["ineligible_8x50x64"]["matches"] != 0 or checks["served_1x50x64"]["matches"] == 0:
-        raise AssertionError(f"the association inputs exercised nothing: {checks}")
+    lib, dev = ta._cuda_setup(iou, order)
+    err, det_match, trk_used = ta._launch(lib, dev, design, iou, order, iou_min)
+    if err != 0:
+        raise RuntimeError(f"{ASSOC_DESIGN_KERNELS[design]} launch failed: cudaError {err}")
+    return det_match, trk_used
+
+
+def enqueue_ms(fn, calls: int = ASSOC_ENQUEUE_CALLS) -> float:
+    """Host time per fn() call over `calls` calls with no synchronisation
+    between them: what the caller's thread pays to enqueue one launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def phase_track_kernels(card):
+    """track_associate's two designs vs the plain version on the card, bit
+    for bit on det_match and trk_used, at each iou_min of ASSOC_IOU_MINS:
+    seeded inputs (crowded and tied IoUs at (1, 50, 64) and (8, 50, 64),
+    every pair ineligible, max_tracks 256) and the crafted ones, each through
+    the wrapper (the design its shape takes), the matrix design where it fits
+    and the row design. Candidate rows per input and threshold. Then both
+    designs timed in turns (matrix, row, row, matrix) at ASSOC_TIMED: device,
+    event and host enqueue ms, device time per chain step. Returns the
+    kernel record."""
+    from sfa3d_tpu_torch.ops.track_associate import (
+        MATRIX_SLOTS_PER_LANE,
+        track_associate,
+        track_associate_candidate_rows,
+        track_associate_design,
+        track_associate_matrix_smem,
+        track_associate_plain,
+    )
+
+    inputs = {name: tuple(torch.from_numpy(a).to(DEVICE) for a in arrays)
+              for name, arrays in track_seeded_inputs().items()}
+    for name, arrays in track_crafted_inputs(np.random.default_rng(SEED + 14)).items():
+        inputs[name] = tuple(torch.from_numpy(a).to(DEVICE) for a in arrays)
+    limit = shared_memory_limit(DEVICE)
+    checks = {}
+    for name, (iou, order) in inputs.items():
+        b, k, t = iou.shape
+        designs = ["row"]
+        if t <= 32 * MATRIX_SLOTS_PER_LANE and track_associate_matrix_smem(k, t) <= limit:
+            designs.append("matrix")
+        by_min = {}
+        for iou_min in ASSOC_IOU_MINS:
+            want = track_associate_plain(iou, order, iou_min)
+            runs = {"wrapper": track_associate(iou, order, iou_min),
+                    **{d: assoc_direct(iou, order, iou_min, d) for d in designs}}
+            torch.cuda.synchronize()
+            for route, got in runs.items():
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"track_associate ({route}) disagrees with its plain version on {name} "
+                                         f"at iou_min {iou_min}")
+            by_min[str(iou_min)] = {"matches": int((want[0] >= 0).sum().item()),
+                                    "candidate_rows": track_associate_candidate_rows(iou, iou_min).sum(1).tolist()}
+        checks[name] = {"shape": [b, k, t], "wrapper_design": track_associate_design(k, t, limit),
+                        "routes": ["wrapper", *designs], "by_iou_min": by_min}
+    at_min = lambda name: checks[name]["by_iou_min"][str(TRACK_IOU_MIN)]  # noqa: E731
+    if at_min("ineligible_8x50x64")["matches"] != 0 or at_min("served_1x50x64")["matches"] == 0 \
+            or checks["served_1x50x64"]["wrapper_design"] != "matrix" \
+            or checks["max_tracks_1x50x256"]["wrapper_design"] != "matrix" \
+            or checks["row_design_50x300"]["wrapper_design"] != "row":
+        raise AssertionError(f"the association inputs exercised nothing, or not both designs: {checks}")
 
     times = {}
-    for name, (iou, order) in tensors.items():
+    for name in ASSOC_TIMED:
+        iou, order = inputs[name]
         b, k, t = iou.shape
-        call = lambda: track_associate(iou, order, TRACK_IOU_MIN)  # noqa: E731
-        dms = device_ms(call, kernel=ASSOC_KERNEL)
-        if dms is None:
-            raise AssertionError(f"the profiler saw no {ASSOC_KERNEL} launch at {name}")
         bound_ms, bound_by, bytes_moved = assoc_bound(b, k, t)
-        times[name] = {"ms": cuda_ms(call), "device_ms": dms, "bound_ms": bound_ms, "bound_by": bound_by,
-                       "per_step_us": dms * 1e3 / k, "bytes": bytes_moved}
-    iou, order = tensors["served_1x50x64"]
+        cand = at_min(name)["candidate_rows"]
+        calls = {"matrix": lambda: assoc_direct(iou, order, TRACK_IOU_MIN, "matrix"),
+                 "row": lambda: assoc_direct(iou, order, TRACK_IOU_MIN, "row")}
+        got = {d: {"device_ms": [], "ms": [], "enqueue_ms": []} for d in calls}
+        for d in ("matrix", "row", "row", "matrix"):
+            dms = device_ms(calls[d], kernel=ASSOC_DESIGN_KERNELS[d])
+            if dms is None:
+                raise AssertionError(f"the profiler saw no {ASSOC_DESIGN_KERNELS[d]} launch at {name}")
+            got[d]["device_ms"].append(dms)
+            got[d]["ms"].append(cuda_ms(calls[d]))
+            got[d]["enqueue_ms"].append(enqueue_ms(calls[d]))
+        wrapper = lambda: track_associate(iou, order, TRACK_IOU_MIN)  # noqa: E731
+        wrapper_device = device_ms(wrapper, kernel=ASSOC_KERNEL)
+        if wrapper_device is None:
+            raise AssertionError(f"the profiler saw no {ASSOC_KERNEL} launch through the wrapper at {name}")
+        got["matrix"]["wrapper_device_ms"] = wrapper_device
+        got["matrix"]["wrapper_ms"] = cuda_ms(wrapper)
+        got["matrix"]["wrapper_enqueue_ms"] = enqueue_ms(wrapper)
+        for d, steps in (("matrix", max(cand)), ("row", k)):
+            got[d]["chain_steps"] = steps
+            got[d]["per_step_us"] = [x * 1e3 / max(steps, 1) for x in got[d]["device_ms"]]
+        times[name] = {"shape": [b, k, t], "candidate_rows": cand, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": bytes_moved, **got}
+    iou, order = inputs["served_1x50x64"]
     served = times["served_1x50x64"]
+    device = statistics.median(served["matrix"]["device_ms"])
     rec = {
         "name": "track_associate", "route": "cuda", "source": "sfa3d_tpu_torch/csrc/track_associate.cu",
         "replaces": "sfa3d_tpu/tracking/tracker.py:131", "launches": None, "max_abs_err": 0.0,
-        "ms": served["ms"], "device_ms": served["device_ms"],
+        "ms": served["matrix"]["wrapper_ms"], "device_ms": device,
         "plain_ms": cuda_ms(lambda: track_associate_plain(iou, order, TRACK_IOU_MIN), reps=5, warmup=1),
         "bound_ms": served["bound_ms"], "bound_by": served["bound_by"], "library_ms": None,
         "library": "none: no single PyTorch call computes a greedy sequential assignment",
-        "bound_share_device": served["bound_ms"] / served["device_ms"],
-        "design": "one warp per frame, used flags in shared memory, shuffle argmax per step",
-        "shape": [1, TRACK_K, TRACK_T], "dependent_steps": TRACK_K, "times_by_shape": times,
+        "bound_share_device": served["bound_ms"] / device,
+        "design": "matrix design (T <= 256 and its keys within the card's shared memory): the frame's IoUs as "
+                  "order keys in shared memory, candidate rows screened off the chain, one warp walks them with "
+                  "two warp reductions a step; else the row design, one warp reading a row a step",
+        "row_design_device_ms": statistics.median(served["row"]["device_ms"]),
+        "shape": [1, TRACK_K, TRACK_T], "dependent_steps": served["matrix"]["chain_steps"], "times_by_shape": times,
     }
     emit({"phase": "track_kernels", "checks": checks, "times": times, "plain_ms": rec["plain_ms"],
           "card": card["nvidia_smi"]})
@@ -2223,15 +2363,26 @@ def phase_track(card):
     CPU: ids, alive, confirmed and next_id equal, boxes / velocities / scores
     within TRACK_TOL, CLEAR-MOT equal, one track_associate launch a frame;
     ms per tracker_step on both."""
-    from sfa3d_tpu_torch.ops.track_associate import track_associate
+    from sfa3d_tpu_torch.ops.track_associate import track_associate, track_associate_candidate_rows
     from sfa3d_tpu_torch.tracking import clear_mot, track_sequence, tracker_output_to_frames
+    from sfa3d_tpu_torch.tracking import tracker as tracker_module
 
     boxes, scores, valid, gt = make_track_scene(np.random.default_rng(SEED + 12))
     run = lambda device: track_sequence(boxes, scores, valid, max_tracks=TRACK_T, iou_min=TRACK_IOU_MIN,  # noqa: E731
                                         max_age=3, min_hits=2, device=device)
+    candidate_rows = []  # the chain's steps in each frame's association
+
+    def counting_associate(iou, order, iou_min):
+        candidate_rows.append(int(track_associate_candidate_rows(iou, iou_min).sum().item()))
+        return track_associate(iou, order, iou_min)
+
     track_associate.launches = 0
-    card_out = run(DEVICE)
-    torch.cuda.synchronize()
+    tracker_module.track_associate = counting_associate
+    try:
+        card_out = run(DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        tracker_module.track_associate = track_associate
     launches = track_associate.launches
     cpu_out = run(torch.device("cpu"))
     if launches != TRACK_FRAMES:
@@ -2260,7 +2411,7 @@ def phase_track(card):
     cpu_ms = host_ms(lambda: run(torch.device("cpu")), reps=3, warmup=1) / TRACK_FRAMES
     profile = step_profile(boxes, scores, valid)
     emit({"phase": "track", "frames": TRACK_FRAMES, "objects": TRACK_OBJECTS, "K": TRACK_K, "max_tracks": TRACK_T,
-          "next_id": next_id["cpu"], "track_associate_launches": launches,
+          "next_id": next_id["cpu"], "track_associate_launches": launches, "candidate_rows_per_frame": candidate_rows,
           "float_max_abs_err": err, "tolerance": TRACK_TOL, "clear_mot": mot_card,
           "motp_abs_err": abs(mot_card["motp"] - mot_cpu["motp"]),
           "ms_per_step_card": card_ms, "ms_per_step_cpu": cpu_ms, "cpu_threads": torch.get_num_threads(),

@@ -62,13 +62,13 @@ def event_ms(fn, reps: int = 50) -> float:
     return float(np.median(times))
 
 
-def ptxas_registers() -> list:
-    """Per kernel of csrc/fusion_loops.cu built with the served flags: {kernel,
+def ptxas_registers(source: str = "fusion_loops") -> list:
+    """Per kernel of csrc/<source>.cu built with the served flags: {kernel,
     registers, spill_stores, spill_loads, smem_bytes}, from nvcc -Xptxas -v."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/lib.so",
-                               str(_build.CSRC_DIR / "fusion_loops.cu")], capture_output=True, text=True, check=True)
+                               str(_build.CSRC_DIR / f"{source}.cu")], capture_output=True, text=True, check=True)
     out, name = [], None
     for line in (proc.stdout + proc.stderr).splitlines():
         m = re.search(r"Function properties for (\S+)", line)

@@ -274,15 +274,24 @@ def test_track_associate_failed_launch_raises_never_falls_back(monkeypatch):
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
-    monkeypatch.setattr(ta, "load_library",
-                        lambda name, signatures: SimpleNamespace(track_associate_cuda=lambda *a: 98))
+    def smem_limit(device, out):
+        out._obj.value = 232448
+        return 0
+
+    monkeypatch.setattr(ta, "load_library", lambda name, signatures: SimpleNamespace(
+        track_associate_smem_limit=smem_limit, track_associate_cuda=lambda *a: 98,
+        track_associate_row_cuda=lambda *a: 98))
+    monkeypatch.setattr(ta, "_smem_limits", {})
     monkeypatch.setattr(ta, "track_associate_plain", plain)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
     cuda = lambda t: torch.Tensor._make_subclass(_CudaTyped, t)  # noqa: E731
-    iou, order = cuda(torch.zeros((2, 8, 16))), cuda(torch.zeros((2, 8), dtype=torch.int32))
     before = ta.track_associate.launches
-    with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
-        ta.track_associate(iou, order, 0.01)
+    # the matrix design, the row design (T past 256), and the row design at a
+    # 52 KB order vector, which takes the opt-in shared memory
+    for k, t in ((8, 16), (8, 300), (13000, 1)):
+        iou, order = cuda(torch.zeros((2, k, t))), cuda(torch.zeros((2, k), dtype=torch.int32))
+        with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
+            ta.track_associate(iou, order, 0.01)
     assert ta.track_associate.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
         ta.track_associate(torch.zeros((1, 8, 16), device="meta"), torch.zeros((1, 8), dtype=torch.int32, device="meta"), 0.01)
@@ -290,9 +299,9 @@ def test_track_associate_failed_launch_raises_never_falls_back(monkeypatch):
         ta.track_associate(torch.zeros((1, 8, 16)), torch.zeros((1, 8), dtype=torch.int64), 0.01)
     with pytest.raises(ValueError, match="at least one track"):
         ta.track_associate(torch.zeros((1, 8, 0)), torch.zeros((1, 8), dtype=torch.int32), 0.01)
-    big = cuda(torch.zeros((1, 13000, 1)))
+    big = cuda(torch.zeros((1, 60000, 1)))  # a 240 KB order vector: past the card's 232,448 bytes
     with pytest.raises(ValueError, match="shared memory"):
-        ta.track_associate(big, cuda(torch.zeros((1, 13000), dtype=torch.int32)), 0.01)
+        ta.track_associate(big, cuda(torch.zeros((1, 60000), dtype=torch.int32)), 0.01)
 
 
 def test_fusion_loop_wrappers_check_their_inputs():

@@ -251,15 +251,33 @@ def _crafted_matrices():
     at[1::2, 1::3] = np.nextafter(np.float32(0.01), np.float32(0))
     cases["at_iou_min"] = at
     cases["zeros_signed"] = rng.choice(np.float32([-0.0, 0.0]), (k, t))
+    # quiet NaNs of both signs: a row of only NaNs, NaNs beside values >= iou_min
+    nan = rng.uniform(-1.0, 1.0, (k, t)).astype(np.float32)
+    nan[rng.random((k, t)) < 0.3] = np.float32(np.nan)
+    nan[rng.random((k, t)) < 0.15] = -np.float32(np.nan)
+    nan[2] = np.float32(np.nan)
+    nan[5, ::2] = -np.float32(np.nan)
+    nan[5, 1::2] = np.float32(0.8)
+    cases["nan_signed"] = nan
+    cases["inf_signed"] = rng.choice(np.float32([-np.inf, np.inf, -1.0, 0.3, 0.3, 0.9]), (k, t))
+    cases["below_minus_one"] = rng.choice(np.float32([-7.5, -2.0, -1.5, -1.0, 0.02]), (k, t))
+    # shapes: more detections than tracks and fewer; T off a multiple of 32; T = 256
+    for name, (kk, tt) in {"k_over_t_20x5": (20, 5), "k_under_t_4x40": (4, 40), "t_33": (12, 33),
+                           "t_100": (12, 100), "t_256": (12, 256)}.items():
+        m = rng.choice(np.float32([0.0, 0.01, 0.4, 0.4, 0.95]), (kk, tt))
+        m[rng.random((kk, tt)) < 0.5] = -1.0
+        m[:, tt - 1] = np.float32(0.97)  # the last column, past the last full warp of columns
+        cases[name] = m
     return cases
 
 
 @pytest.mark.parametrize("name", sorted(_crafted_matrices()))
-@pytest.mark.parametrize("iou_min", [0.01, 0.0, -1.0])
+@pytest.mark.parametrize("iou_min", [0.01, 0.0, -1.0, -2.0])
 def test_associate_plain_matches_jax_loop(name, iou_min):
-    """Exact on crafted ties, all-ineligible rows and values at iou_min;
-    with iou_min <= -1 even ineligible pairs match (there is no > 0
-    condition, unlike the fusion match)."""
+    """Exact on crafted ties, all-ineligible rows, values at iou_min, NaNs
+    of both signs, infinities, values below -1 and shapes on either side of
+    a warp of columns; with iou_min <= -1 even ineligible pairs match (there
+    is no > 0 condition, unlike the fusion match)."""
     iou = _crafted_matrices()[name]
     order = np.random.default_rng(7).permutation(iou.shape[0]).astype(np.int32)
     want = [np.asarray(x) for x in _jax_loop(jnp.asarray(iou), jnp.asarray(order), iou_min)]
@@ -272,7 +290,7 @@ def test_associate_plain_matches_jax_loop(name, iou_min):
 
 
 def test_associate_plain_batches_frames_independently():
-    cases = list(_crafted_matrices().values())
+    cases = [c for c in _crafted_matrices().values() if c.shape == (12, 16)]
     iou = np.stack(cases)
     order = np.stack([np.random.default_rng(i).permutation(12) for i in range(len(cases))]).astype(np.int32)
     got = track_associate_plain(torch.from_numpy(iou), torch.from_numpy(order), 0.01)
