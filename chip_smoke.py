@@ -129,7 +129,28 @@ Phases, each printing one JSON line:
           track_associate launch per tracked frame; bucket-1 batch ms with
           --track on and off; one TCP round trip on the card; --arch
           resnet_18 card vs CPU
-Then one {"kernels": [...]} line and, last, the {"ok": true, ...} line.
+  argoverse_kernel  the tile kernel's Argoverse mode (argoverse_raster_reduce)
+          vs its plain PyTorch version on the card, bit for bit, at the
+          training shape (16, 131072) -> 1000 x 1000: about 100k in-range
+          points a sweep, one cell hit 10,000 times, an all-invalid sweep,
+          z and r negative, -0.0, subnormal and NaN, and every point on the
+          rows where two bands meet; its count channel equals
+          bev_cell_counts at 1000 x 1000. Event, device, plain and library
+          ms (scatter_reduce_ amax x 2 + bincount) and the bound
+  argoverse  a 64-sweep mini-Argoverse from the port's writer: the raster of
+          16 sweeps on the card against the CPU (indices, height and
+          intensity bit-exact, density within 1e-4 of 255); the
+          argoverse_test CLI over 16 sweeps on the card and with --platform
+          cpu (every frame answered, detections within 1e-3, one raster
+          launch a sweep, ms a sweep); the training path at the CLI's
+          defaults (608 crop, batch 16, effective batch 64, bfloat16): 3
+          timed steps through create_train_loader / make_train_step (finite
+          losses, one raster launch per collated batch, CUDA-event ms,
+          frames/s end to end, peak memory), then one epoch of the training
+          CLI with --val_ap (warned and skipped), whose checkpoint
+          argoverse_test loads
+Then the script's total seconds, one {"kernels": [...]} line and, last, the
+{"ok": true, ...} line.
 
 Exits non-zero, with no result line, when CUDA is unavailable or any
 phase fails. Weights are random, drawn from a fixed torch.Generator.
@@ -169,8 +190,11 @@ from sfa3d_tpu_torch.models.yolov8 import (
 from sfa3d_tpu_torch.ops import bev as bev_ops
 from sfa3d_tpu_torch.ops import fusion_loops
 from sfa3d_tpu_torch.ops.bev_counts import (
+    ARGOVERSE_BYTES_PER_CELL,
     COUNT_BYTES_PER_CELL,
     RASTER_BYTES_PER_CELL,
+    argoverse_raster_reduce,
+    argoverse_raster_reduce_plain,
     bev_cell_counts,
     bev_cell_counts_plain,
     bev_raster_reduce,
@@ -2620,10 +2644,285 @@ def phase_serve_cli(card, tmp_root):
     return raster_launches, assoc_launches
 
 
+# ---------------------------------------------------------------------------
+# the Argoverse path
+# ---------------------------------------------------------------------------
+
+ARGO_B, ARGO_N = 16, 131072  # the train CLI's batch of sweeps; config/argoverse.py's MAX_POINTS
+ARGO_H = ARGO_W = 1000  # the Argoverse raster: 0.1 m cells over +-50 m
+ARGO_FRAMES = 64  # the mini-Argoverse: one CLI step of 4 x 16 sweeps an epoch, 4 validation batches
+ARGO_TEST_FRAMES = 16  # sweeps through argoverse_test on the card and on the CPU
+ARGO_TRAIN_STEPS = 3  # timed steps (one-batch epochs) at the CLI's defaults
+ARGO_DENSITY_TOL = 1e-4  # log1p card vs CPU, on the 0-255 scale
+
+
+def argoverse_kernel_inputs(rng, tile_rows):
+    """The argoverse_kernel phase's (B, N) inputs, {name: (row, col, z, r)}
+    numpy: the training shape with about 100k in-range points a sweep, one
+    cell hit 10,000 times (sweep 3), an all-invalid sweep (5), z and r
+    negative, -0.0, subnormal and NaN on 5% of the points; and the same
+    values with every point on a row where two bands meet."""
+    b, n = ARGO_B, ARGO_N
+    special = np.array([-1.5, -0.0, 0.0, 1e-40, -1e-40, 1.4e-45, np.nan], np.float32)
+
+    def values(lo, hi):
+        v = rng.uniform(lo, hi, (b, n)).astype(np.float32)
+        pick = rng.random((b, n)) < 0.05
+        v[pick] = rng.choice(special, int(pick.sum()))
+        return v
+
+    row = rng.integers(0, ARGO_H, (b, n)).astype(np.int32)
+    col = rng.integers(0, ARGO_W, (b, n)).astype(np.int32)
+    drop = rng.random((b, n)) < 0.24
+    row[drop] = col[drop] = -1
+    row[3, :10000], col[3, :10000] = 500, 321
+    row[5] = col[5] = -1
+    z, r = values(-3.0, 5.0), values(-0.1, 1.0)
+    edges = np.array([e for m in range(tile_rows, ARGO_H, tile_rows) for e in (m - 1, m)], np.int32)
+    return {"training": (row, col, z, r),
+            "band_edges": (rng.choice(edges, (b, n)).astype(np.int32),
+                           rng.integers(0, ARGO_W, (b, n)).astype(np.int32), z, r)}
+
+
+def bits_equal(a, b) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase_argoverse_kernel(card):
+    dev = DEVICE
+    smem = shared_memory_limit(dev)
+    plan = tile_plan(ARGO_B, ARGO_H, ARGO_W, ARGOVERSE_BYTES_PER_CELL, smem)
+    cases = argoverse_kernel_inputs(np.random.default_rng(SEED + 20), plan[0])
+    checks = {}
+    for name, arrays in cases.items():
+        row, col, z, r = (torch.from_numpy(a).to(dev) for a in arrays)
+        got = argoverse_raster_reduce(row, col, z, r, ARGO_H, ARGO_W)
+        plain = argoverse_raster_reduce_plain(row, col, z, r, ARGO_H, ARGO_W)
+        counts = bev_cell_counts(row, col, ARGO_H, ARGO_W)
+        if not bits_equal(got, plain):
+            raise AssertionError(f"argoverse_raster_reduce differs from its plain version on {name}")
+        if not torch.equal(got[:, 0], counts):
+            raise AssertionError(f"argoverse_raster_reduce's counts differ from bev_cell_counts on {name}")
+        if name == "training":
+            cpu = argoverse_raster_reduce_plain(*(torch.from_numpy(a) for a in arrays), ARGO_H, ARGO_W)
+            if not bits_equal(got.cpu(), cpu):
+                raise AssertionError("argoverse_raster_reduce on the card differs from the CPU plain version")
+            if got[3, 0, 500, 321].item() < 10000 or got[5].any():
+                raise AssertionError("the hot cell lost counts or the all-invalid sweep left a mark")
+        checks[name] = {"bit_exact": True, "count_equals_bev_cell_counts": True,
+                        "in_range_points_per_sweep": (row >= 0).sum(1).float().mean().item()}
+    emit({"phase": "argoverse_kernel", "shape": [ARGO_B, ARGO_N, ARGO_H, ARGO_W], "plan": plan,
+          "shared_memory_per_block": smem, "checks": checks, "card": card["nvidia_smi"]})
+
+    row, col, z, r = (torch.from_numpy(a).to(dev) for a in cases["training"])
+    ok = row >= 0
+    n_valid = int(ok.sum().item())
+    batch = torch.arange(ARGO_B, device=dev)[:, None]
+    flat = torch.where(ok, (batch * ARGO_H + row) * ARGO_W + col, ARGO_B * ARGO_H * ARGO_W).reshape(-1)
+    cid = torch.where(ok, row.long() * ARGO_W + col.long(), ARGO_H * ARGO_W)
+
+    def library():  # the reductions as PyTorch calls, a yardstick only
+        for v in (z, r):
+            torch.zeros((ARGO_B, ARGO_H * ARGO_W + 1), device=dev).scatter_reduce_(
+                1, cid, v, reduce="amax", include_self=True)
+        torch.bincount(flat, minlength=ARGO_B * ARGO_H * ARGO_W + 1)
+
+    def run(args):
+        return lambda: argoverse_raster_reduce(*args, ARGO_H, ARGO_W)
+
+    band = tuple(torch.from_numpy(a).to(dev) for a in cases["band_edges"])
+    dms = device_ms(run((row, col, z, r)))
+    bytes_moved = 4 * row.numel() * 4 + ARGO_B * 3 * ARGO_H * ARGO_W * 4  # row, col, z, r read; 3 planes written
+    ops = 3 * n_valid  # a count and two maxima per in-range point
+    bound_bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    rec = {
+        "name": "argoverse_raster_reduce",
+        "route": "cuda",
+        "source": "sfa3d_tpu_torch/csrc/bev_counts.cu",
+        "replaces": "sfa3d_tpu/ops/bev_pallas.py:76",
+        "replaces_on_path": "sfa3d_tpu/ops/bev.py:308 (argoverse_points_to_bev's segment_max x 2 + segment_sum)",
+        "launches": None,  # filled in from the path's run
+        "max_abs_err": 0.0,  # bit-exact or raised
+        "ms": cuda_ms(run((row, col, z, r)), reps=20),
+        "device_ms": dms,
+        "plain_ms": cuda_ms(lambda: argoverse_raster_reduce_plain(row, col, z, r, ARGO_H, ARGO_W), reps=10),
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+        "bound_share_device": bound_ms / dms if dms else None,
+        "library_ms": cuda_ms(library, reps=10),
+        "device_ms_band_edges": device_ms(run(band)),
+        "bev_cell_counts_ms_at_this_shape": cuda_ms(lambda: bev_cell_counts(row, col, ARGO_H, ARGO_W), reps=20),
+        "bytes": bytes_moved,
+        "valid_points": n_valid,
+        "plan": plan,
+    }
+    emit({"phase": "argoverse_kernel_time", **{k: v for k, v in rec.items()
+                                               if k not in ("route", "source", "replaces", "launches")},
+          "card": card["nvidia_smi"]})
+    return rec
+
+
+def phase_argoverse(card, tmp_root):
+    """The Argoverse path through the entry points a user calls: the port's
+    writer, the raster card vs CPU, the argoverse_test CLI card vs CPU, the
+    training path at the CLI's defaults and one epoch of the training CLI
+    whose checkpoint argoverse_test loads. Returns the raster kernel's
+    launches on each path, each read with the count set to 0 just before."""
+    import os
+
+    from sfa3d_tpu_torch.cli import argoverse_test as argo_cli
+    from sfa3d_tpu_torch.cli import train as train_cli
+    from sfa3d_tpu_torch.config.train import parse_train_configs
+    from sfa3d_tpu_torch.data.argoverse import ArgoverseDataset, ArgoverseTrainLoader, crop_raster, write_mini_argoverse
+    from sfa3d_tpu_torch.data.loader import create_train_loader, create_val_loader
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.pipeline import detect_bev
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    t0 = time.perf_counter()
+    root = write_mini_argoverse(os.path.join(tmp_root, "argo"), n_frames=ARGO_FRAMES, seed=SEED)
+    write_s = time.perf_counter() - t0
+
+    # the raster of 16 real sweeps on the card against the CPU
+    ds = ArgoverseDataset(root, mode="test", num_samples=ARGO_TEST_FRAMES)
+    samples = [ds[i] for i in range(len(ds))]
+    pts_c = torch.from_numpy(np.stack([x.points for x in samples]))
+    valid_c = torch.from_numpy(np.stack([x.valid for x in samples]))
+    pts_g, valid_g = pts_c.to(DEVICE), valid_c.to(DEVICE)
+    idx_g = bev_ops.argoverse_cell_indices(pts_g, valid_g)
+    idx_c = bev_ops.argoverse_cell_indices(pts_c, valid_c)
+    for name, a, b in zip(("row", "col", "z", "r"), idx_g, idx_c):
+        if not bits_equal(a.cpu(), b):
+            raise AssertionError(f"Argoverse {name} differs between the card and the CPU")
+    if not bits_equal(argoverse_raster_reduce(*idx_g, ARGO_H, ARGO_W),
+                      argoverse_raster_reduce_plain(*idx_g, ARGO_H, ARGO_W)):
+        raise AssertionError("argoverse_raster_reduce differs from its plain version on the sweeps")
+    bev_g = bev_ops.argoverse_points_to_bev_nchw(pts_g, valid_g).cpu()
+    bev_c = bev_ops.argoverse_points_to_bev_nchw(pts_c, valid_c)
+    for c in (1, 2):
+        if not torch.equal(bev_g[:, c], bev_c[:, c]):
+            raise AssertionError(f"Argoverse raster channel {c} differs between the card and the CPU")
+    density_err = (bev_g[:, 0] - bev_c[:, 0]).abs().max().item()
+    if density_err > ARGO_DENSITY_TOL:
+        raise AssertionError(f"Argoverse density card vs CPU differs by {density_err}")
+    raster_ms = cuda_ms(lambda: bev_ops.argoverse_points_to_bev_nchw(pts_g, valid_g), reps=10)
+    del pts_g, valid_g, bev_g
+
+    # argoverse_test over 16 sweeps, on the card and on the CPU
+    model = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED))
+    bump_heatmap_bias(model)
+    ckpt = os.path.join(tmp_root, "kfpn_argo.pth")
+    torch.save(model.state_dict(), ckpt)
+    args = ["--dataset_dir", root, "--pretrained_path", ckpt, "--num_samples", str(ARGO_TEST_FRAMES)]
+    res_g, res_c = [], []
+    bev_raster_reduce.launches = 0
+    argoverse_raster_reduce.launches = 0  # the main path's launches only
+    t0 = time.perf_counter()
+    failed = argo_cli.main(args + ["--output_dir", os.path.join(tmp_root, "argo_out")], results=res_g)
+    card_s = time.perf_counter() - t0
+    test_launches = argoverse_raster_reduce.launches
+    if failed or len(res_g) != ARGO_TEST_FRAMES or test_launches != ARGO_TEST_FRAMES or bev_raster_reduce.launches:
+        raise AssertionError(f"argoverse_test: {failed} failed, {len(res_g)} answered, {test_launches} "
+                             f"Argoverse raster launches for {ARGO_TEST_FRAMES} sweeps")
+    t0 = time.perf_counter()
+    failed = argo_cli.main(args + ["--platform", "cpu", "--output_dir", os.path.join(tmp_root, "argo_cpu")],
+                           results=res_c)
+    cpu_s = time.perf_counter() - t0
+    if failed or len(res_c) != ARGO_TEST_FRAMES:
+        raise AssertionError(f"argoverse_test --platform cpu: {failed} failed, {len(res_c)} answered")
+    det_err, n_dets = 0.0, []
+    for a, b in zip(res_g, res_c):
+        ra, rb = (x["boxes_real"][x["mask"]].astype(np.float64) for x in (a, b))
+        ra, rb = (x[np.lexsort((x[:, 2], x[:, 1], x[:, 0]))] for x in (ra, rb))
+        if a["timestamp"] != b["timestamp"] or ra.shape != rb.shape:
+            raise AssertionError(f"sweep {a['timestamp']}: {len(ra)} detections on the card, {len(rb)} on the CPU")
+        if len(ra):
+            det_err = max(det_err, float(np.abs(ra - rb).max()))
+        n_dets.append(len(ra))
+    if det_err > NET_TOL or sum(n_dets) == 0:
+        raise AssertionError(f"argoverse_test detections card vs CPU: max |diff| {det_err}, counts {n_dets}")
+    gpu_model = model.to(DEVICE).eval()
+    with torch.inference_mode():
+        crop = crop_raster(bev_ops.argoverse_points_to_bev_nchw(pts_c[:1].to(DEVICE), valid_c[:1].to(DEVICE)))
+        detect_ms = cuda_ms(lambda: detect_bev(gpu_model, crop.permute(0, 2, 3, 1), K=50, peak_thresh=0.2), reps=10)
+
+    # the training path at the CLI's defaults
+    configs = parse_train_configs(["--dataset", "argoverse", "--dataset_dir", root,
+                                   "--root-dir", os.path.join(tmp_root, "argo_run"), "--seed", str(SEED)])
+    rt = configs.runtime
+    s = configs.optim.effective_batch // rt.batch_size
+    if (rt.batch_size, s, configs.model.compute_dtype) != TRAIN_DEFAULTS:
+        raise AssertionError(f"the CLI defaults are not batch, S, dtype = {TRAIN_DEFAULTS}")
+    loader = create_train_loader(configs, device=DEVICE)
+    if not isinstance(loader, ArgoverseTrainLoader):
+        raise AssertionError(f"--dataset argoverse built a {type(loader).__name__}")
+    init_sd = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    train_model = _train_model(init_sd).to(DEVICE)
+    spec = create_optimizer(configs.optim, rt.num_epochs, len(loader))
+    state = create_train_state(train_model, spec)
+    step = make_train_step(train_model, spec, compute_dtype=configs.model.compute_dtype, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    argoverse_raster_reduce.launches = 0
+    state, ms, losses, wait, wall = _timed_steps(step, state, _epoch_batches(loader, ARGO_TRAIN_STEPS))
+    train_launches = argoverse_raster_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    if len(ms) != ARGO_TRAIN_STEPS * len(loader) or train_launches != len(ms) or not all(np.isfinite(losses)):
+        raise AssertionError(f"Argoverse training: {len(ms)} steps, {train_launches} raster launches, "
+                             f"losses {losses}")
+    frames = s * rt.batch_size
+    del state, step, train_model
+
+    # one epoch of the training CLI (with --val_ap: warned and skipped), whose
+    # checkpoint argoverse_test loads
+    argoverse_raster_reduce.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--dataset", "argoverse", "--dataset_dir", root, "--root-dir", os.path.join(tmp_root, "argo_cli"),
+                    "--num_epochs", "1", "--checkpoint_freq", "1", "--seed", str(SEED), "--print_freq", "1",
+                    "--val_ap"])
+    cli_s = time.perf_counter() - t0
+    cli_launches = argoverse_raster_reduce.launches
+    val_batches = len(create_val_loader(configs, device=DEVICE))
+    if cli_launches != len(loader) + val_batches:
+        raise AssertionError(f"the CLI epoch launched the Argoverse raster {cli_launches} times for "
+                             f"{len(loader)} + {val_batches} batches")
+    log = open(os.path.join(tmp_root, "argo_cli", "logs", rt.saved_fn, f"logger_{rt.saved_fn}.txt")).read()
+    cli_losses = [float(v) for v in re.findall(r"Loss (\S+) \(", log)]
+    if not cli_losses or not all(np.isfinite(cli_losses)) or "--val_ap supports the KITTI layout only" not in log:
+        raise AssertionError(f"the CLI epoch's losses {cli_losses}, or --val_ap was not skipped")
+    ckpt = os.path.join(tmp_root, "argo_cli", "checkpoints", rt.saved_fn, f"Model_{rt.saved_fn}_epoch_1.pth")
+    res_ck = []
+    if argo_cli.main(["--dataset_dir", root, "--pretrained_path", ckpt, "--num_samples", "4",
+                      "--output_dir", os.path.join(tmp_root, "argo_ck")], results=res_ck) or len(res_ck) != 4:
+        raise AssertionError("argoverse_test did not answer every sweep with the trained checkpoint")
+    emit({"phase": "argoverse", "sweeps_written": ARGO_FRAMES, "write_seconds": write_s,
+          "in_range_points_per_sweep": (idx_c[0] >= 0).sum(1).float().mean().item(),
+          "raster_density_max_abs_err_vs_cpu": density_err, "raster_ms_16_sweeps": raster_ms,
+          "argoverse_test": {"sweeps": ARGO_TEST_FRAMES, "failed": 0, "raster_launches": test_launches,
+                             "detections_per_sweep": n_dets, "detections_max_abs_err_vs_cpu": det_err,
+                             "card_seconds": card_s, "card_ms_per_sweep": card_s / ARGO_TEST_FRAMES * 1e3,
+                             "cpu_seconds": cpu_s, "crop_detect_ms_one_sweep": detect_ms},
+          "train": {"batch_size": rt.batch_size, "S": s, "frames_per_step": frames,
+                    "compute_dtype": configs.model.compute_dtype, "steps": len(ms), "step_ms": ms,
+                    "losses": losses, "raster_launches": train_launches, "loader_wait_ms": wait,
+                    "step_wall_ms": wall,
+                    "frames_per_s_end_to_end": (len(ms) - 1) * frames / (sum(wall[1:]) / 1e3),
+                    "frames_per_s_device": frames / (statistics.median(ms[1:]) / 1e3),
+                    "max_memory_allocated_bytes": peak},
+          "train_cli": {"seconds": cli_s, "raster_launches": cli_launches, "val_batches": val_batches,
+                        "losses": cli_losses, "checkpoint_sweeps_answered": len(res_ck)},
+          "card": card["nvidia_smi"]})
+    return {"argoverse_test": test_launches, "argoverse_train": train_launches, "argoverse_train_cli": cli_launches}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build(card)
     counts_rec, raster_rec = phase_kernel(card)
+    argo_rec = phase_argoverse_kernel(card)
     loop_recs = phase_fusion_kernels(card)
     pts, valid = phase_raster(card)
     phase_model(card, pts, valid)
@@ -2641,6 +2940,7 @@ def main() -> int:
         nms_eval_shape, yolo_eval_launches = phase_yolo_eval(card, val, best_path)
         kitti_launches = phase_kitti_eval(card, root, tmp_root)
         serve_cli_raster_launches, serve_cli_assoc_launches = phase_serve_cli(card, tmp_root)
+        argo_launches = phase_argoverse(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -2662,8 +2962,12 @@ def main() -> int:
     track_rec["launches"] = serve_cli_assoc_launches
     track_rec["path"] = "serve --track over stdio: 2 streams x 8 frames, one launch per tracked frame"
     track_rec["launches_by_path"] = {"serve_cli": serve_cli_assoc_launches, "track": track_launches}
+    argo_rec["launches"] = argo_launches["argoverse_test"]
+    argo_rec["path"] = "argoverse_test CLI: 16 sweeps, one launch a sweep"
+    argo_rec["launches_by_path"] = argo_launches
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(card["nvidia_smi"], flush=True)
-    emit({"kernels": [counts_rec, raster_rec, *loop_recs, track_rec]})
+    emit({"kernels": [counts_rec, raster_rec, *loop_recs, track_rec, argo_rec]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

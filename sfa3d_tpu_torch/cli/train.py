@@ -1,7 +1,7 @@
 """Training entry point of the port, the counterpart of
 `sfa3d_tpu/cli/train.py`:
 
-    python -m sfa3d_tpu_torch.cli.train --dataset_dir DIR [flags]
+    python -m sfa3d_tpu_torch.cli.train --dataset_dir DIR [--dataset argoverse] [flags]
 
 An epoch loop over `create_train_loader` batches (per-epoch reseeded
 sampling and augmentation), one accumulated train step per batch
@@ -143,7 +143,11 @@ def maybe_val_ap(configs, ckpt_path, epoch, logger, tb_writer):
     """The val split's detection AP at a checkpoint (--val_ap): the eval CLI
     run in-process on the checkpoint just saved (its EMA weights when EMA is
     on), on the training device; logs mAP, mAOS and the per-class AP.
-    Returns the eval CLI's results."""
+    Returns the eval CLI's results; with `--dataset argoverse`, which has
+    no AP evaluation, it warns and returns None, as the JAX trainer does."""
+    if configs.data.dataset != "kitti":
+        logger.warning("--val_ap supports the KITTI layout only; skipping")
+        return None
     from sfa3d_tpu_torch.cli.eval import main as eval_main
 
     ap_args = ["--dataset_dir", configs.data.dataset_dir, "--split", "val", "--arch", configs.model.arch,

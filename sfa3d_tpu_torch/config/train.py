@@ -5,9 +5,10 @@ with the reference flag names and defaults).
 Flags that name work this port has not taken yet are parsed as in the JAX
 package and then refused by `refuse_unported` with a NotImplementedError,
 never ignored: `--mesh_shape` above 1 (data parallelism),
-`--imagenet_pretrained`, `--dataset argoverse`, and the JAX tooling flags
-`--profile_dir` and `--compilation_cache`. `--val_ap` runs the KITTI AP
-evaluator (`cli/eval.py`) at each checkpoint.
+`--imagenet_pretrained`, the JAX tooling flags `--profile_dir` and
+`--compilation_cache`, and an `--arch` other than fpn_resnet_*. `--val_ap`
+runs the KITTI AP evaluator (`cli/eval.py`) at each checkpoint (with
+`--dataset argoverse` it warns and skips, as the JAX trainer does).
 
 `--platform cpu` asks for the CPU; without it training runs on `cuda`.
 `--compute_dtype bfloat16` (the default) runs the forward and backward
@@ -198,7 +199,6 @@ def refuse_unported(cfg: TrainConfig) -> TrainConfig:
         (rt.mesh_shape is not None and rt.mesh_shape > 1,
          f"--mesh_shape {rt.mesh_shape}: data parallelism is not ported yet (one device only)"),
         (cfg.model.imagenet_pretrained, "--imagenet_pretrained: ImageNet backbone init is not ported yet"),
-        (cfg.data.dataset != "kitti", f"--dataset {cfg.data.dataset}: only the KITTI loader is ported"),
         (rt.profile_dir is not None, "--profile_dir: a jax.profiler trace has no counterpart in the port"),
         (rt.compilation_cache is not None,
          "--compilation_cache: the XLA compilation cache has no counterpart in the port"),

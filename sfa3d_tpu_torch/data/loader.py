@@ -6,7 +6,9 @@ fixed-shape samples, and `prepare_train_batch`, which turns a collated batch
 of raw padded scans into BEV rasters (mirrored along W where a sample was
 flipped) and training targets on the device: one `points_to_bev_nchw` call,
 so one launch of the hand-written raster kernel (`bev_raster_reduce`) per
-collated batch of S x B frames on the card.
+collated batch of S x B frames on the card. `--dataset argoverse` takes
+`data/argoverse.py`'s loader, whose preparation launches the tile kernel's
+Argoverse mode once per collated batch.
 """
 
 from __future__ import annotations
@@ -228,8 +230,8 @@ def _check_batch(configs, process_count: int) -> None:
     if configs.runtime.batch_size % process_count != 0:
         raise ValueError(f"batch_size {configs.runtime.batch_size} must divide evenly over "
                          f"{process_count} processes")
-    if configs.data.dataset != "kitti":
-        raise NotImplementedError(f"--dataset {configs.data.dataset}: only the KITTI loader is ported")
+    if configs.data.dataset not in ("kitti", "argoverse"):
+        raise ValueError(f"--dataset {configs.data.dataset}: expected kitti or argoverse")
 
 
 def _loader_device(configs, device: Device):
@@ -238,16 +240,42 @@ def _loader_device(configs, device: Device):
     return "cpu" if configs.runtime.platform == "cpu" else None
 
 
+def _create_argoverse_loader(configs, mode: str, process_index: int, process_count: int,
+                             device: Device):
+    """`--dataset argoverse`: the Argoverse dataset and loader pair
+    (argoverse_dataloader.py), with no augmentation and no hflip."""
+    from sfa3d_tpu_torch.data.argoverse import ArgoverseDataset, ArgoverseTrainLoader
+
+    train = mode == "train"
+    dataset = ArgoverseDataset(configs.data.dataset_dir, mode=mode, num_samples=configs.data.num_samples,
+                               max_objects=configs.data.max_objects)
+    return ArgoverseTrainLoader(
+        dataset,
+        batch_size=configs.runtime.batch_size // process_count,
+        subdivisions=max(1, configs.optim.effective_batch // configs.runtime.batch_size) if train else 1,
+        shuffle=train,
+        seed=configs.runtime.seed,
+        drop_last=train,
+        process_index=process_index,
+        process_count=process_count,
+        num_workers=configs.data.num_workers,
+        device=_loader_device(configs, device),
+    )
+
+
 def create_train_loader(configs, dataset_cls=None, process_index: int = 0,
                         process_count: int = 1, device: Device = None):
     """The training loader of a TrainConfig: the dataset with the reference
     augmentation and hflip, and S = effective_batch // batch_size
-    micro-batches a step. `device` defaults to the CPU under
-    `--platform cpu`, else cuda."""
+    micro-batches a step (`--dataset argoverse`: the Argoverse pair, without
+    augmentation). `device` defaults to the CPU under `--platform cpu`,
+    else cuda."""
     from sfa3d_tpu_torch.data.augment import default_train_aug
     from sfa3d_tpu_torch.data.kitti import KittiDataset
 
     _check_batch(configs, process_count)
+    if dataset_cls is None and configs.data.dataset == "argoverse":
+        return _create_argoverse_loader(configs, "train", process_index, process_count, device)
     dataset = (dataset_cls or KittiDataset)(
         configs.data.dataset_dir,
         mode="train",
@@ -278,6 +306,8 @@ def create_val_loader(configs, dataset_cls=None, process_index: int = 0,
     from sfa3d_tpu_torch.data.kitti import KittiDataset
 
     _check_batch(configs, process_count)
+    if dataset_cls is None and configs.data.dataset == "argoverse":
+        return _create_argoverse_loader(configs, "val", process_index, process_count, device)
     dataset = (dataset_cls or KittiDataset)(
         configs.data.dataset_dir, mode="val", lidar_aug=None, hflip_prob=0.0,
         num_samples=configs.data.num_samples, max_objects=configs.data.max_objects,

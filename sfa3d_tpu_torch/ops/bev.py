@@ -27,6 +27,14 @@ reciprocal, because XLA compiles `x / c` that way: a true division moves
 with the JAX raster (tests/test_torch_bev.py covers cell-edge points).
 Each elementwise step is its own PyTorch op, so nothing is contracted to a
 fused multiply-add. Subnormal coordinates count as zero, as under XLA.
+
+`argoverse_points_to_bev` is the Argoverse variant (1000 x 1000 cells of
+0.1 m over +-50 m): row = (maxX - x) / disc (x flipped), col = (y - minY) /
+disc, strict upper bounds, rows and columns clipped rather than dropped;
+per cell the count, max(z, 0) and max(r, 0) in one launch of the tile
+kernel's argoverse mode (`ops/bev_counts.py::argoverse_raster_reduce`),
+then [log1p(count), height, intensity], each min-max scaled to [0, 255]
+over the whole frame.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import numpy as np
 import torch
 
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.ops.bev_counts import _f32_reciprocal, bev_raster_reduce
+from sfa3d_tpu_torch.ops.bev_counts import _f32_reciprocal, argoverse_raster_reduce, bev_raster_reduce
 
 _BOUND = (
     cnf.boundary["minX"], cnf.boundary["maxX"],
@@ -275,6 +283,107 @@ def dequantize_points(q: torch.Tensor) -> torch.Tensor:
     q = q.to(torch.int32) & 0xFFFF  # an int16 bit pattern back to 0..65535
     scale, qmin = _dequantize_constants(q.device)
     return (q.to(torch.float64) * scale + qmin).to(torch.float32)
+
+
+_ARGO_BOUND = (-50.0, 50.0, -50.0, 50.0, -3.0, 5.0)  # config/argoverse.py's boundary
+
+
+def argoverse_bev_size(discretization: float = 0.1, bound=_ARGO_BOUND) -> Tuple[int, int]:
+    """(H, W) of the Argoverse raster: 1000 x 1000 at the defaults."""
+    min_x, max_x, min_y, max_y, _, _ = bound
+    return int((max_x - min_x) / discretization), int((max_y - min_y) / discretization)
+
+
+def argoverse_cell_indices(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    discretization: float = 0.1,
+    bound: Tuple[float, float, float, float, float, float] = _ARGO_BOUND,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The elementwise half of the Argoverse raster: (B, N, 4) raw padded
+    sweeps + (B, N) bool mask -> (row, col, z, r), row and col (B, N) int32
+    (-1 for a point dropped by the mask or the range filter), z and r the
+    sweeps' (B, N) float32 with subnormals read as zero.
+
+    A point is kept where min <= v < max on x, y and z (strict upper
+    bounds); its row (maxX - x) / disc and column (y - minY) / disc are cut
+    to integers toward zero and clipped into the raster, as the JAX raster
+    does. The divisions are multiplications by the float32 reciprocal, as
+    XLA compiles them; clamping before the int cast equals the JAX
+    cast-then-clip for every finite value."""
+    H, W = argoverse_bev_size(discretization, bound)
+    min_x, max_x, min_y, max_y, min_z, max_z = bound
+    points = torch.as_tensor(points).to(torch.float32)
+    valid = torch.as_tensor(valid, device=points.device).to(torch.bool)
+    if points.dim() != 3 or points.shape[-1] != 4 or valid.shape != points.shape[:2]:
+        raise ValueError(
+            f"expected points (B, N, 4) and valid (B, N); got "
+            f"{tuple(points.shape)} and {tuple(valid.shape)}"
+        )
+    points = torch.where(points.abs() < torch.finfo(torch.float32).tiny, 0.0, points)
+    x, y, z, r = points.unbind(-1)
+    ok = (
+        valid
+        & (x >= min_x) & (x < max_x)
+        & (y >= min_y) & (y < max_y)
+        & (z >= min_z) & (z < max_z)
+    )
+    inv_disc = _f32_reciprocal(discretization)
+    rowf = torch.clamp((max_x - x) * inv_disc, 0.0, H - 1.0)
+    colf = torch.clamp((y - min_y) * inv_disc, 0.0, W - 1.0)
+    row = torch.where(ok, rowf, -1.0).to(torch.int32)
+    col = torch.where(ok, colf, -1.0).to(torch.int32)
+    return row, col, z.contiguous(), r.contiguous()
+
+
+def _minmax255(m: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) -> each frame scaled to [0, 255] by its own min and max,
+    in the JAX raster's float order (a true division by the range)."""
+    lo = m.amin(dim=(1, 2), keepdim=True)
+    hi = m.amax(dim=(1, 2), keepdim=True)
+    return (m - lo) / torch.clamp_min(hi - lo, 1e-12) * 255.0
+
+
+def argoverse_points_to_bev_nchw(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    discretization: float = 0.1,
+    bound: Tuple[float, float, float, float, float, float] = _ARGO_BOUND,
+) -> torch.Tensor:
+    """(B, N, 4) raw padded sweeps + (B, N) bool mask -> (B, 3, H, W)
+    float32 Argoverse raster, channels [density, height, intensity], each in
+    [0, 255], on the sweeps' device:
+        density    log1p(count)
+        height     per-cell max of max(z, 0)
+        intensity  per-cell max of max(r, 0) (a NaN intensity counts as 0)
+    each min-max scaled over its whole frame."""
+    H, W = argoverse_bev_size(discretization, bound)
+    row, col, z, r = argoverse_cell_indices(points, valid, discretization=discretization, bound=bound)
+    count, height, intensity = argoverse_raster_reduce(row, col, z, r, H, W).unbind(1)
+    return torch.stack([_minmax255(torch.log1p(count)), _minmax255(height), _minmax255(intensity)], dim=1)
+
+
+def argoverse_points_to_bev(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    discretization: float = 0.1,
+    bound: Tuple[float, float, float, float, float, float] = _ARGO_BOUND,
+) -> torch.Tensor:
+    """The Argoverse raster in the JAX package's NHWC layout: (N, 4) or
+    (B, N, 4) sweeps + (N,) or (B, N) mask -> (H, W, 3) or (B, H, W, 3)
+    float32 (a channels-last view of `argoverse_points_to_bev_nchw`)."""
+    points = torch.as_tensor(points)
+    single = points.dim() == 2
+    if single:
+        points = points[None]
+        valid = torch.as_tensor(valid)[None]
+    bev = argoverse_points_to_bev_nchw(
+        points, valid, discretization=discretization, bound=bound
+    ).permute(0, 2, 3, 1)
+    return bev[0] if single else bev
 
 
 def points_to_bev_batch(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -6,18 +6,25 @@ The TPU kernel built the count as bf16 one-hot matrix products because the
 TPU has no fast scatter. On Hopper one templated kernel (`csrc/bev_counts.cu`)
 gives a block one band of rows of one frame, keeps the band's accumulators
 in shared memory (integer atomics: exact in any order), and writes the
-finished band once. It has two entries:
+finished band once. It has three entries:
 
-  bev_raster_reduce  (B, N) int32 row, col, key -> (B, 3, H, W) float32
-                     raster (intensity, height, density), channels first:
-                     everything the raster does after `cell_indices_and_keys`
-  bev_cell_counts    (B, N) int32 row, col -> (B, H, W) float32 exact counts,
-                     what the TPU kernel computes
+  bev_raster_reduce        (B, N) int32 row, col, key -> (B, 3, H, W)
+                           float32 KITTI raster (intensity, height,
+                           density), channels first: everything the raster
+                           does after `cell_indices_and_keys`
+  bev_cell_counts          (B, N) int32 row, col -> (B, H, W) float32 exact
+                           counts, what the TPU kernel computes
+  argoverse_raster_reduce  (B, N) int32 row, col and float32 z, r ->
+                           (B, 3, H, W) float32 [count, max(z, 0),
+                           max(r, 0)] per cell: the Argoverse raster's
+                           reductions (`ops/bev.py::argoverse_points_to_bev`)
 
-Both are bound by bytes: at the served shape (8, 32768) -> 608x608 the
+All are bound by bytes: at the served shape (8, 32768) -> 608x608 the
 raster reads 3.1 MB and writes 35.5 MB (11.5 us at 3.35 TB/s), the counts
-read 2.1 MB and write 11.8 MB (4.2 us). `tile_plan` cuts the rows into
-bands whose accumulators fit the block's shared memory.
+read 2.1 MB and write 11.8 MB (4.2 us); the Argoverse entry at the training
+shape (16, 131072) -> 1000x1000 reads 33.5 MB and writes 192 MB (67 us).
+`tile_plan` cuts the rows into bands whose accumulators fit the block's
+shared memory.
 
 Unlike the TPU kernel, which asserts N % 128 == 0 (bev_pallas.py:80; its
 docstring says 512), the port accepts any N. Indices outside the raster
@@ -43,6 +50,7 @@ H = 608
 W = 608
 RASTER_BYTES_PER_CELL = 8  # int32 max key + int32 count
 COUNT_BYTES_PER_CELL = 4  # int32 count
+ARGOVERSE_BYTES_PER_CELL = 12  # int32 count + two int32 maxima
 MAX_GRID_Y = 65535  # the grid's y dimension holds the batch
 
 _c_ptr, _c_i32, _c_i64, _c_f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
@@ -56,6 +64,11 @@ _SIGNATURES = {
     "bev_cell_counts_cuda": (
         ctypes.c_int,
         (_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32, _c_i32, _c_ptr),
+    ),
+    "argoverse_raster_reduce_cuda": (
+        ctypes.c_int,
+        (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32,
+         _c_i32, _c_ptr),
     ),
 }
 _smem_limits = {}  # device index -> bytes of shared memory a block may use
@@ -105,6 +118,16 @@ def _check(*tensors: torch.Tensor) -> None:
         raise ValueError(f"indices lie on {[str(t.device) for t in tensors]}")
 
 
+def _check_values(like: torch.Tensor, *values: torch.Tensor) -> None:
+    if any(v.shape != like.shape for v in values):
+        raise ValueError(f"values must be (B, N) like the indices {tuple(like.shape)}; got "
+                         f"{[tuple(v.shape) for v in values]}")
+    if any(v.dtype != torch.float32 for v in values):
+        raise TypeError(f"values must be float32; got {[v.dtype for v in values]}")
+    if any(v.device != like.device for v in values):
+        raise ValueError(f"values lie on {[str(v.device) for v in values]}, indices on {like.device}")
+
+
 def _cuda_launch_setup(name: str, tensors) -> Tuple[ctypes.CDLL, torch.device]:
     """The library and device for a launch; raises for a device that is not
     CUDA (the CPU never gets here) or a tensor that is not contiguous."""
@@ -112,7 +135,7 @@ def _cuda_launch_setup(name: str, tensors) -> Tuple[ctypes.CDLL, torch.device]:
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous indices")
+        raise ValueError(f"{name} needs contiguous inputs")
     return load_library("bev_counts", _SIGNATURES), dev
 
 
@@ -226,5 +249,52 @@ def bev_raster_reduce(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
     return out
 
 
+def argoverse_raster_reduce_plain(row: torch.Tensor, col: torch.Tensor, z: torch.Tensor,
+                                  r: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Plain PyTorch version: (B, N) int32 cell indices (-1 = dropped) and
+    float32 z, r -> (B, 3, H, W) float32, per cell:
+        0: the number of points                  (`bev_cell_counts_plain`)
+        1: the max of max(z, 0) over its points  (0 for an empty cell)
+        2: the max of max(r, 0) over its points  (0 for an empty cell)
+    max(v, 0) is +0.0 for -0.0, NaN and negatives, as in the kernel."""
+    _check(row, col)
+    _check_values(row, z, r)
+    b = row.shape[0]
+    num_cells = H * W
+    ok = (row >= 0) & (row < H) & (col >= 0) & (col < W)
+    cid = torch.where(ok, row.long() * W + col.long(), num_cells)  # dump cell
+
+    def cell_max(v):
+        top = torch.zeros((b, num_cells + 1), dtype=torch.float32, device=row.device)
+        top.scatter_reduce_(1, cid, torch.where(v > 0, v, 0.0), reduce="amax", include_self=True)
+        return top[:, :num_cells]
+
+    count = bev_cell_counts_plain(row, col, H, W).view(b, num_cells)
+    return torch.stack([count, cell_max(z), cell_max(r)], dim=1).view(b, 3, H, W)
+
+
+def argoverse_raster_reduce(row: torch.Tensor, col: torch.Tensor, z: torch.Tensor,
+                            r: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(B, N) int32 row, col and float32 z, r -> (B, 3, H, W) float32
+    [count, max z, max r] per cell (see `argoverse_raster_reduce_plain`).
+    CUDA tensors launch the argoverse mode of `csrc/bev_counts.cu` (one
+    launch); CPU tensors take `argoverse_raster_reduce_plain`."""
+    _check(row, col)
+    _check_values(row, z, r)
+    if row.device.type == "cpu":
+        return argoverse_raster_reduce_plain(row, col, z, r, H, W)
+    lib, dev = _cuda_launch_setup("argoverse_raster_reduce", (row, col, z, r))
+    b, n = row.shape
+    tile_rows, n_tiles = tile_plan(b, H, W, ARGOVERSE_BYTES_PER_CELL, _smem_limit(lib, dev))
+    out = row.new_empty((b, 3, H, W), dtype=torch.float32)
+    err = lib.argoverse_raster_reduce_cuda(
+        row.data_ptr(), col.data_ptr(), z.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, H, W,
+        tile_rows, n_tiles, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    finish_launch(argoverse_raster_reduce, "argoverse_raster_reduce", err)
+    return out
+
+
 bev_cell_counts.launches = 0
 bev_raster_reduce.launches = 0
+argoverse_raster_reduce.launches = 0

@@ -33,7 +33,8 @@ def test_port_imports_without_jax():
                  "config.train", "cli.train", "data.png", "data.yolo2d", "losses.yolo_loss",
                  "parallel.yolo_step", "eval.map2d", "eval.kitti_eval", "ops.rotated_iou", "cli.yolo_train",
                  "cli.eval", "tracking.tracker", "tracking.metrics", "ops.track_associate",
-                 "runtime.tracking_service", "cli.serve", "models.centernet_deconv"):
+                 "runtime.tracking_service", "cli.serve", "models.centernet_deconv", "config.argoverse",
+                 "geometry.se3", "geometry.argoverse_calib", "data.argoverse", "cli.argoverse_test"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -189,7 +190,7 @@ class _CudaTyped(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("entry", ["bev_cell_counts", "bev_raster_reduce"])
+@pytest.mark.parametrize("entry", ["bev_cell_counts", "bev_raster_reduce", "argoverse_raster_reduce"])
 def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
     """A CUDA-typed call whose launch returns a CUDA error raises; it never
     returns the plain result and never counts a launch."""
@@ -208,14 +209,16 @@ def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
     fake = SimpleNamespace(bev_smem_limit=smem_limit, bev_cell_counts_cuda=refuse,
-                           bev_raster_reduce_cuda=refuse)
+                           bev_raster_reduce_cuda=refuse, argoverse_raster_reduce_cuda=refuse)
     monkeypatch.setattr(bev_counts, "load_library", lambda name, signatures: fake)
     monkeypatch.setattr(bev_counts, "_smem_limits", {})
     monkeypatch.setattr(bev_counts, f"{entry}_plain", plain)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
     fn = getattr(bev_counts, entry)
     idx = torch.Tensor._make_subclass(_CudaTyped, torch.zeros((2, 64), dtype=torch.int32))
-    args = (idx, idx) if entry == "bev_cell_counts" else (idx, idx, idx)
+    vals = torch.Tensor._make_subclass(_CudaTyped, torch.zeros((2, 64)))
+    args = {"bev_cell_counts": (idx, idx), "bev_raster_reduce": (idx, idx, idx),
+            "argoverse_raster_reduce": (idx, idx, vals, vals, 1000, 1000)}[entry]
     before = fn.launches
     with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
         fn(*args)

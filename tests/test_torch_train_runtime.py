@@ -295,7 +295,7 @@ def test_checkpoint_files_and_loading(tmp_path, init_state_dict):
 
 
 @pytest.mark.parametrize("flag", [["--mesh_shape", "2"], ["--compilation_cache", "/tmp/c"],
-                                  ["--imagenet_pretrained"], ["--dataset", "argoverse"],
+                                  ["--imagenet_pretrained"], ["--dataset", "argoverse", "--mesh_shape", "4"],
                                   ["--profile_dir", "/tmp/p"], ["--compilation_cache"], ["--arch", "resnet_18"]])
 def test_unported_flags_raise(flag):
     with pytest.raises(NotImplementedError):
