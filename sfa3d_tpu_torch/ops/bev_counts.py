@@ -1,12 +1,12 @@
 """The BEV raster's per-cell reduction and exact per-cell point counts: the
 port of the Pallas kernel `sfa3d_tpu/ops/bev_pallas.py:76`
-(`bev_cell_counts`), redesigned for Hopper as one shared-memory tile pass.
+(`bev_cell_counts`), redesigned for Hopper on shared-memory integer atomics.
 
 The TPU kernel built the count as bf16 one-hot matrix products because the
-TPU has no fast scatter. On Hopper one templated kernel (`csrc/bev_counts.cu`)
-gives a block one band of rows of one frame, keeps the band's accumulators
-in shared memory (integer atomics: exact in any order), and writes the
-finished band once. It has three entries:
+TPU has no fast scatter. On Hopper (`csrc/bev_counts.cu`) a block owns one
+band of rows of one frame, keeps the band's accumulators in shared memory
+(integer atomics: exact in any order), and writes the finished band once.
+There are three entries:
 
   bev_raster_reduce        (B, N) int32 row, col, key -> (B, 3, H, W)
                            float32 KITTI raster (intensity, height,
@@ -19,26 +19,30 @@ finished band once. It has three entries:
                            max(r, 0)] per cell: the Argoverse raster's
                            reductions (`ops/bev.py::argoverse_points_to_bev`)
 
-All are bound by bytes: at the served shape (8, 32768) -> 608x608 the
-raster reads 3.1 MB and writes 35.5 MB (11.5 us at 3.35 TB/s), the counts
-read 2.1 MB and write 11.8 MB (4.2 us); the Argoverse entry at the training
-shape (16, 131072) -> 1000x1000 reads 33.5 MB and writes 192 MB (67 us).
-`tile_plan` cuts the rows into bands whose accumulators fit the block's
-shared memory.
+The first two are one tile pass (`tile_plan` cuts the rows into bands whose
+accumulators fit a block's shared memory; each band's block scans its
+frame's points). The Argoverse entry buckets the points by band first, in
+three kernels a call (histogram, scatter, reduce; `argoverse_band_plan`
+sizes the bands and chunks), so each band's block reads only its own
+points. All are bound by bytes: at the served shape (8, 32768) -> 608x608
+the raster reads 3.1 MB and writes 35.5 MB (11.5 us at 3.35 TB/s), the
+counts read 2.1 MB and write 11.8 MB (4.2 us); the Argoverse entry at
+(16, 131072) -> 1000x1000 reads 33.5 MB and writes 192 MB (67 us).
 
 Unlike the TPU kernel, which asserts N % 128 == 0 (bev_pallas.py:80; its
 docstring says 512), the port accepts any N. Indices outside the raster
 count nowhere.
 
-Each entry launches its kernel for CUDA tensors (or raises) and takes its
+Each entry launches its kernels for CUDA tensors (or raises) and takes its
 plain PyTorch version (`*_plain`) only for tensors on the CPU. Each keeps a
-`launches` counter, so a run can show that the served path went through the
-kernel.
+`launches` counter (one a call), so a run can show that the served path
+went through the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -52,6 +56,10 @@ RASTER_BYTES_PER_CELL = 8  # int32 max key + int32 count
 COUNT_BYTES_PER_CELL = 4  # int32 count
 ARGOVERSE_BYTES_PER_CELL = 12  # int32 count + two int32 maxima
 MAX_GRID_Y = 65535  # the grid's y dimension holds the batch
+ARGOVERSE_BLOCKS_PER_SM = 2  # reduce blocks an SM holds at once: one writes its band while another fills
+ARGOVERSE_CHUNKS = (4096, 2048, 1024)  # points a histogram / scatter block takes, largest first
+SMEM_RESERVED_PER_BLOCK = 1024  # shared memory the card keeps for each resident block
+ARGOVERSE_STATIC_SMEM = 128  # the Argoverse kernels' static shared memory: a scan's 32 warp sums
 
 _c_ptr, _c_i32, _c_i64, _c_f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -65,13 +73,20 @@ _SIGNATURES = {
         ctypes.c_int,
         (_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32, _c_i32, _c_ptr),
     ),
+    "bev_sm_count": (ctypes.c_int, (_c_i32, ctypes.POINTER(_c_i32))),
     "argoverse_raster_reduce_cuda": (
+        ctypes.c_int,
+        (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32,
+         _c_i32, _c_i32, _c_i32, _c_ptr),
+    ),
+    "argoverse_raster_reduce_tile_cuda": (  # the first design, kept to be compared with
         ctypes.c_int,
         (_c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_i32, _c_i32, _c_i32, _c_i32,
          _c_i32, _c_ptr),
     ),
 }
 _smem_limits = {}  # device index -> bytes of shared memory a block may use
+_sm_counts = {}  # device index -> SMs
 
 
 def _f32_reciprocal(c: float) -> float:
@@ -106,6 +121,66 @@ def tile_plan(B: int, H: int, W: int, bytes_per_cell: int, smem_limit: int) -> T
     n_tiles = -(-H // rows_fit)
     tile_rows = -(-H // n_tiles)
     return tile_rows, -(-H // tile_rows)
+
+
+def argoverse_reduce_smem(band_rows: int, W: int) -> int:
+    """Dynamic shared memory of an Argoverse reduce block: three int32
+    planes of the band's cells, each padded to a multiple of 4 cells."""
+    return -(-band_rows * W // 4) * 4 * ARGOVERSE_BYTES_PER_CELL
+
+
+def argoverse_scatter_smem(chunk: int, n_bands: int) -> int:
+    """Dynamic shared memory of an Argoverse scatter block: three int32 per
+    band (its run in the bucket, its run in staging, the staging cursor) and
+    four per point of its chunk (a staged record and its place)."""
+    return 12 * n_bands + 16 * chunk
+
+
+def argoverse_scratch_len(B: int, N: int, n_bands: int, chunk: int) -> int:
+    """int32 entries of the Argoverse entry's scratch: the band totals and
+    the buckets' starts ((B, n_bands) each), each chunk's counts and its
+    runs' offsets ((B, chunks, n_bands) each), then the records (3, B, N):
+    25 MB at (16, 131072)."""
+    return 2 * B * n_bands * (1 + -(-N // chunk)) + 3 * B * N
+
+
+@functools.lru_cache(maxsize=256)
+def argoverse_band_plan(B: int, N: int, H: int, W: int, smem_limit: int,
+                        sm_count: int) -> Tuple[int, int, int]:
+    """Bands and chunks for the Argoverse entry -> (band_rows, n_bands,
+    chunk).
+
+    A reduce block keeps its band in shared memory at 12 B a cell; a band
+    has as many rows as let ARGOVERSE_BLOCKS_PER_SM such blocks share an SM
+    (`smem_limit`, a block's opt-in limit, stands for the SM's share: 9 rows
+    of 1000 on an H100, where 3 or 6 rows gave no faster call at 1, 16 or 64
+    sweeps, `scripts/torch_argoverse_variants.py`). The rows are spread
+    evenly over the fewest bands, so band k covers rows [k * band_rows,
+    min(H, (k + 1) * band_rows)). `chunk` is the points a histogram or
+    scatter block takes: the largest of ARGOVERSE_CHUNKS whose grid
+    (ceil(N / chunk), B) still holds ARGOVERSE_BLOCKS_PER_SM blocks for each
+    of the `sm_count` SMs, else the smallest. Raises ValueError when one row
+    of W cells does not fit a block's share, a scatter block does not fit
+    `smem_limit`, or B exceeds the grid."""
+    if H < 1 or W < 1 or B < 0 or N < 0:
+        raise ValueError(f"argoverse_band_plan needs H, W >= 1 and B, N >= 0; got B={B}, N={N}, H={H}, W={W}")
+    if B > MAX_GRID_Y:
+        raise ValueError(f"batch {B} exceeds the grid's y dimension ({MAX_GRID_Y})")
+    share = smem_limit // ARGOVERSE_BLOCKS_PER_SM - SMEM_RESERVED_PER_BLOCK - ARGOVERSE_STATIC_SMEM
+    rows_fit = (share // ARGOVERSE_BYTES_PER_CELL) // 4 * 4 // W
+    if rows_fit < 1:
+        raise ValueError(
+            f"one raster row of {W} cells needs {W * ARGOVERSE_BYTES_PER_CELL} bytes of shared "
+            f"memory; {ARGOVERSE_BLOCKS_PER_SM} blocks an SM leave a block {share}"
+        )
+    n_bands = -(-H // rows_fit)
+    band_rows = -(-H // n_bands)
+    target = ARGOVERSE_BLOCKS_PER_SM * sm_count
+    chunk = next((c for c in ARGOVERSE_CHUNKS if B * -(-N // c) >= target), ARGOVERSE_CHUNKS[-1])
+    if argoverse_scatter_smem(chunk, n_bands) + ARGOVERSE_STATIC_SMEM > smem_limit:
+        raise ValueError(f"{n_bands} bands and chunks of {chunk} points take more than the "
+                         f"{smem_limit} bytes of shared memory a block may use")
+    return band_rows, n_bands, chunk
 
 
 def _check(*tensors: torch.Tensor) -> None:
@@ -150,6 +225,17 @@ def _smem_limit(lib: ctypes.CDLL, dev: torch.device) -> int:
     return limit
 
 
+def _sm_count(lib: ctypes.CDLL, dev: torch.device) -> int:
+    count = _sm_counts.get(dev.index)
+    if count is None:
+        v = _c_i32(0)
+        err = lib.bev_sm_count(dev.index, ctypes.byref(v))
+        if err != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed on {dev}: cudaError {err}")
+        count = _sm_counts[dev.index] = v.value
+    return count
+
+
 def shared_memory_limit(device) -> int:
     """Bytes of shared memory one block may use on the CUDA `device` (the
     `smem_limit` the wrappers give `tile_plan`)."""
@@ -157,6 +243,15 @@ def shared_memory_limit(device) -> int:
     if dev.index is None:
         dev = torch.device(dev.type, torch.cuda.current_device())
     return _smem_limit(load_library("bev_counts", _SIGNATURES), dev)
+
+
+def multiprocessor_count(device) -> int:
+    """SMs on the CUDA `device` (the `sm_count` the Argoverse wrapper gives
+    `argoverse_band_plan`)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return _sm_count(load_library("bev_counts", _SIGNATURES), dev)
 
 
 def bev_cell_counts_plain(row: torch.Tensor, col: torch.Tensor,
@@ -277,22 +372,38 @@ def argoverse_raster_reduce(row: torch.Tensor, col: torch.Tensor, z: torch.Tenso
                             r: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """(B, N) int32 row, col and float32 z, r -> (B, 3, H, W) float32
     [count, max z, max r] per cell (see `argoverse_raster_reduce_plain`).
-    CUDA tensors launch the argoverse mode of `csrc/bev_counts.cu` (one
-    launch); CPU tensors take `argoverse_raster_reduce_plain`."""
+    CUDA tensors launch the three Argoverse kernels of `csrc/bev_counts.cu`
+    (`argoverse_band_launch`; one call counts one launch) or raise; CPU
+    tensors take `argoverse_raster_reduce_plain`."""
     _check(row, col)
     _check_values(row, z, r)
     if row.device.type == "cpu":
         return argoverse_raster_reduce_plain(row, col, z, r, H, W)
     lib, dev = _cuda_launch_setup("argoverse_raster_reduce", (row, col, z, r))
     b, n = row.shape
-    tile_rows, n_tiles = tile_plan(b, H, W, ARGOVERSE_BYTES_PER_CELL, _smem_limit(lib, dev))
-    out = row.new_empty((b, 3, H, W), dtype=torch.float32)
-    err = lib.argoverse_raster_reduce_cuda(
-        row.data_ptr(), col.data_ptr(), z.data_ptr(), r.data_ptr(), out.data_ptr(), b, n, H, W,
-        tile_rows, n_tiles, dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    plan = argoverse_band_plan(b, n, H, W, _smem_limit(lib, dev), _sm_count(lib, dev))
+    out, err = argoverse_band_launch(lib, dev, row, col, z, r, H, W, plan)
     finish_launch(argoverse_raster_reduce, "argoverse_raster_reduce", err)
     return out
+
+
+def argoverse_band_launch(lib: ctypes.CDLL, dev: torch.device, row: torch.Tensor,
+                          col: torch.Tensor, z: torch.Tensor, r: torch.Tensor, H: int, W: int,
+                          plan: Tuple[int, int, int]) -> Tuple[torch.Tensor, int]:
+    """Enqueues the Argoverse histogram, scatter and reduce kernels of `lib`
+    on the current stream at `plan` (band_rows, n_bands, chunk), in one C
+    call -> (out, its CUDA error, 0 when all three launched). The scratch
+    (`argoverse_scratch_len` int32) comes from PyTorch's allocator; the
+    kernels allocate nothing."""
+    band_rows, n_bands, chunk = plan
+    b, n = row.shape
+    out = row.new_empty((b, 3, H, W), dtype=torch.float32)
+    scratch = row.new_empty((argoverse_scratch_len(b, n, n_bands, chunk),))
+    err = lib.argoverse_raster_reduce_cuda(
+        row.data_ptr(), col.data_ptr(), z.data_ptr(), r.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), b, n, H, W, band_rows, n_bands, chunk, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    return out, err
 
 
 bev_cell_counts.launches = 0

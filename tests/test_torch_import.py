@@ -190,28 +190,44 @@ class _CudaTyped(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("entry", ["bev_cell_counts", "bev_raster_reduce", "argoverse_raster_reduce"])
-def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
-    """A CUDA-typed call whose launch returns a CUDA error raises; it never
-    returns the plain result and never counts a launch."""
+@pytest.mark.parametrize("entry,refused", [
+    pytest.param("bev_cell_counts", "bev_cell_counts_cuda", id="bev_cell_counts"),
+    pytest.param("bev_raster_reduce", "bev_raster_reduce_cuda", id="bev_raster_reduce"),
+    pytest.param("argoverse_raster_reduce", "argoverse_raster_reduce_cuda", id="argoverse_raster_reduce"),
+    pytest.param("argoverse_raster_reduce", "bev_smem_limit", id="argoverse_raster_reduce-smem_query"),
+    pytest.param("argoverse_raster_reduce", "bev_sm_count", id="argoverse_raster_reduce-sm_query"),
+])
+def test_failed_launch_raises_never_falls_back(monkeypatch, entry, refused):
+    """A CUDA-typed call whose launch, or a device query before it, returns
+    a CUDA error raises; it never returns the plain result and never counts
+    a launch. The Argoverse entry's one C call enqueues all three of its
+    kernels and returns the first error."""
     from types import SimpleNamespace
 
     from sfa3d_tpu_torch.ops import bev_counts
 
-    def smem_limit(device, out):
-        out._obj.value = 232448
-        return 0
+    def query(value):
+        def ask(device, out):
+            out._obj.value = value
+            return 0
+        return ask
 
     def refuse(*args):
         return 98  # cudaErrorInvalidDeviceFunction
 
+    def launched(*args):
+        raise AssertionError("a launch followed a refused device query")
+
     def plain(*args, **kwargs):
         raise AssertionError("the plain version ran for a CUDA tensor")
 
-    fake = SimpleNamespace(bev_smem_limit=smem_limit, bev_cell_counts_cuda=refuse,
-                           bev_raster_reduce_cuda=refuse, argoverse_raster_reduce_cuda=refuse)
+    entries = {"bev_smem_limit": query(232448), "bev_sm_count": query(132), "bev_cell_counts_cuda": launched,
+               "bev_raster_reduce_cuda": launched, "argoverse_raster_reduce_cuda": launched}
+    entries[refused] = refuse
+    fake = SimpleNamespace(**entries)
     monkeypatch.setattr(bev_counts, "load_library", lambda name, signatures: fake)
     monkeypatch.setattr(bev_counts, "_smem_limits", {})
+    monkeypatch.setattr(bev_counts, "_sm_counts", {})
     monkeypatch.setattr(bev_counts, f"{entry}_plain", plain)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
     fn = getattr(bev_counts, entry)
@@ -220,7 +236,8 @@ def test_failed_launch_raises_never_falls_back(monkeypatch, entry):
     args = {"bev_cell_counts": (idx, idx), "bev_raster_reduce": (idx, idx, idx),
             "argoverse_raster_reduce": (idx, idx, vals, vals, 1000, 1000)}[entry]
     before = fn.launches
-    with pytest.raises(RuntimeError, match="CUDA launch failed: cudaError 98"):
+    message = "CUDA launch failed" if refused.endswith("_cuda") else "cudaDeviceGetAttribute failed"
+    with pytest.raises(RuntimeError, match=f"{message}.*cudaError 98"):
         fn(*args)
     assert fn.launches == before
 
