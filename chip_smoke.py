@@ -158,6 +158,25 @@ Phases, each printing one JSON line:
           frames/s end to end, peak memory), then one epoch of the training
           CLI with --val_ap (warned and skipped), whose checkpoint
           argoverse_test loads
+  export  the AOT export (runtime/export.py) on the card at full width
+          (fpn_resnet_18, 608 x 608, 32768 points, K = 50, heatmap biases
+          raised): a symbolic-batch and a batch-8 detector artifact, saved,
+          loaded and run at buckets 1 and 8 against Detector.detect_batch
+          (masks equal, boxes within 1e-4, one bev_raster_reduce launch a
+          call), the batch-8 one refusing a batch of 1; a fresh python3
+          process that loads the symbolic artifact and makes its first call;
+          a batch-8 fused artifact (375 x 1242 frames, letterbox 640) of a
+          FusedDetector(imgsz=640)'s conditioned weights against its
+          run_batch given the baked pad (every reply equal; one launch each
+          of bev_raster_reduce, hard_nms_keep, soft_nms_gaussian and
+          greedy_match a call); cli export --batch 8, then cli serve
+          --artifact over stdio with and without --track (every request
+          answered, batches padded to 8, detections within 1e-3 of the live
+          detector, one raster launch a batch, one track_associate launch a
+          tracked frame). Export, save and load seconds, file MB, first-call
+          ms, ms a batch of the artifact and of the live detector in turns;
+          the host enqueue ms of every kernel entry through its custom op
+          and past the dispatcher (the raster also as a bare C call)
 Then the script's total seconds, one {"kernels": [...]} line and, last, the
 {"ok": true, ...} line.
 
@@ -263,18 +282,22 @@ def self_device_us(evt) -> float:
 def device_kernels(fn, pattern: str, reps: int = 20, warmup: int = 3) -> dict:
     """{kernel: {"device_ms": per fn() call, "launches": per call}} for the
     device activities whose name matches `pattern` (torch.profiler, CUPTI),
-    each named by its match; {} if three profiled windows saw none (now and
-    then one records no kernel)."""
+    each named by its match. Now and then a profiled window loses device
+    records: it sees no kernel, or a kernel fewer times than the calls made
+    it (fn() launches the same kernels on every call, so each count is a
+    whole multiple of reps). Such a window is profiled again, up to three
+    windows; the last one that saw any kernel is returned, else {}."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    seen = {}
     for _ in range(3):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        found = {}
+        found, counts = {}, {}
         for e in prof.key_averages():
             m = re.search(pattern, e.key)
             us = self_device_us(e)
@@ -282,9 +305,12 @@ def device_kernels(fn, pattern: str, reps: int = 20, warmup: int = 3) -> dict:
                 k = found.setdefault(m.group(0), {"device_ms": 0.0, "launches": 0.0})
                 k["device_ms"] += us / reps / 1e3
                 k["launches"] += e.count / reps
+                counts[m.group(0)] = counts.get(m.group(0), 0) + e.count
         if found:
-            return found
-    return {}
+            seen = found
+            if all(c % reps == 0 for c in counts.values()):
+                return found
+    return seen
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3, kernel: str = KERNEL_NAME):
@@ -1079,16 +1105,16 @@ YOLO_REACH_BUMP = 8.0  # added to that bin's logit
 MIN_FUSED_PER_FRAME = 1  # fused (source 2) rows the 16 replies must hold, per frame
 
 
-def yolo_gate_bias(yolo: torch.nn.Module, image: np.ndarray) -> float:
+def yolo_gate_bias(yolo: torch.nn.Module, image: np.ndarray, canvas=CANVAS) -> float:
     """The class-conv bias that puts the YOLO_GATE_TOP-th best anchor of
-    `image` just above the 0.25 gate, once the class logits are spread by
-    x1000 (see bump_fused_biases)."""
+    `image` letterboxed onto `canvas` just above the 0.25 gate, once the
+    class logits are spread by x1000 (see bump_fused_biases)."""
     probe = copy.deepcopy(yolo).cpu()
     with torch.no_grad():
         for i in range(3):
             probe.model[22].cv3[i][2].weight *= 1000.0
             probe.model[22].cv3[i][2].bias.zero_()
-        levels = forward_levels(probe, torch.from_numpy(letterbox(image, CANVAS)[0][None]))
+        levels = forward_levels(probe, torch.from_numpy(letterbox(image, canvas)[0][None]))
     best = torch.cat([c.reshape(-1, c.shape[-1]) for _, c in levels]).amax(-1).double()
     top = torch.topk(best, YOLO_GATE_TOP + 1).values
     return float(np.log(0.25 / 0.75) - (top[-2] + top[-1]).item() / 2)
@@ -3039,6 +3065,315 @@ def phase_argoverse(card, tmp_root):
     return {"argoverse_test": test_launches, "argoverse_train": train_launches, "argoverse_train_cli": cli_launches}
 
 
+# ---------------------------------------------------------------------------
+# AOT export: the exported programs on the card
+# ---------------------------------------------------------------------------
+
+EXPORT_BATCH = 8  # the fixed artifacts' batch: the served bucket
+EXPORT_LETTERBOX = 640  # the fused artifact's square canvas (the export's default)
+EXPORT_TOL = 1e-4  # float outputs, artifact vs live on the card: the same ATen ops, whose cuDNN paths may differ
+EXPORT_CLI_TOL = 1e-3  # served (padded batch-8) detections vs the live detector's batch of one
+COLD_START = """
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from sfa3d_tpu_torch.detector import ArtifactDetector
+from sfa3d_tpu_torch.ops.bev_counts import bev_raster_reduce
+torch.backends.cudnn.allow_tf32 = False  # strict float32, as in this script: the artifact carries no such flag
+torch.backends.cuda.matmul.allow_tf32 = False
+t1 = time.perf_counter()
+ad = ArtifactDetector(sys.argv[1])
+t2 = time.perf_counter()
+frame = np.load(sys.argv[2])
+out = ad.detect_batch(frame["pts"], frame["valid"])
+t3 = time.perf_counter()
+np.save(sys.argv[3], out["boxes_real"])
+print(json.dumps({"import_s": t1 - t0, "load_s": t2 - t1, "first_call_ms": (t3 - t2) * 1e3,
+                  "launches": bev_raster_reduce.launches, "detections": int(out["mask"].sum())}))
+"""
+
+
+def compare_outputs(got, want):
+    """(max abs difference of the float outputs, integer and bool outputs
+    all equal, bit for bit) of two dicts of host arrays."""
+    err, discrete, exact = 0.0, True, True
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{k}: {g.shape} {g.dtype} against {w.shape} {w.dtype}")
+        if w.dtype.kind == "f":
+            err = max(err, float(np.abs(g - w).max(initial=0.0)))
+        elif not np.array_equal(g, w):
+            discrete = False
+        exact = exact and np.array_equal(g, w)
+    return err, discrete, exact
+
+
+def counted_call(fns, call):
+    """call()'s result and the launches each of `fns` counted during it."""
+    before = [fn.launches for fn in fns]
+    out = call()
+    torch.cuda.synchronize()
+    return out, {fn.__name__: fn.launches - b for fn, b in zip(fns, before)}
+
+
+def in_turns(runs, timer=host_ms):
+    """{name: [ms, ms]}: each fn of `runs` timed twice, in turns a, b, b, a."""
+    names = list(runs)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        out[n].append(timer(runs[n]))
+    return out
+
+
+def bare_raster_call(row, col, key):
+    """The raster kernel's C entry called directly with a preallocated
+    output: what an enqueue costs without Python's checks, allocation and
+    dispatcher. Counts no launch."""
+    from sfa3d_tpu_torch._build import load_library
+
+    b, n = row.shape
+    lib = load_library("bev_counts", bev_counts._SIGNATURES)
+    tile_rows, n_tiles = tile_plan(b, cnf.BEV_HEIGHT, cnf.BEV_WIDTH, RASTER_BYTES_PER_CELL, shared_memory_limit(DEVICE))
+    out = torch.empty((b, 3, cnf.BEV_HEIGHT, cnf.BEV_WIDTH), device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (row.data_ptr(), col.data_ptr(), key.data_ptr(), out.data_ptr(), b, n, cnf.BEV_HEIGHT, cnf.BEV_WIDTH,
+            tile_rows, n_tiles, bev_counts._INV_4095, bev_counts._INV_8191, bev_counts._INV_LOG64,
+            DEVICE.index or 0, stream)
+
+    def call():
+        err = lib.bev_raster_reduce_cuda(*args)
+        if err != 0:
+            raise RuntimeError(f"bev_raster_reduce_cuda launch failed: cudaError {err}")
+
+    return call
+
+
+def export_enqueue_times(pts, valid):
+    """Host enqueue ms per call of each kernel entry through its custom op
+    (the public wrapper) and past the dispatcher (`_<entry>_impl`, the
+    wrapper as it was before the entries became ops), in turns, under
+    inference mode as the served paths call them; the raster also through
+    its bare C call, and op against impl with autograd on (the training
+    path's mode)."""
+    from sfa3d_tpu_torch.ops import track_associate as ta
+
+    rng = np.random.default_rng(SEED + 23)
+    dev = DEVICE
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    nms = on_card(loop_boxes(rng, LOOP_B, 256), rng.random((LOOP_B, 256)) < 0.8)
+    soft = on_card(loop_boxes(rng, LOOP_B, 114), rng.uniform(0, 1, (LOOP_B, 114)).astype(np.float32),
+                   rng.random((LOOP_B, 114)) < 0.8)
+    match = on_card(loop_boxes(rng, LOOP_B, 64), rng.random((LOOP_B, 64)) < 0.8,
+                    loop_boxes(rng, LOOP_B, 50), rng.random((LOOP_B, 50)) < 0.8)
+    assoc = on_card(*track_iou_inputs(rng, 1, TRACK_K, TRACK_T, "crowded"))
+    out = {}
+    with torch.inference_mode():
+        idx = bev_ops.cell_indices_and_keys(*on_card(pts, valid))
+        hw = (cnf.BEV_HEIGHT, cnf.BEV_WIDTH)
+        entries = {
+            "bev_raster_reduce": (lambda: bev_raster_reduce(*idx), lambda: bev_counts._bev_raster_reduce_impl(*idx, *hw)),
+            "hard_nms_keep": (lambda: fusion_loops.hard_nms_keep(*nms, 0.45),
+                              lambda: fusion_loops._hard_nms_keep_impl(*nms, 0.45)),
+            "soft_nms_gaussian": (lambda: fusion_loops.soft_nms_gaussian(*soft),
+                                  lambda: fusion_loops._soft_nms_gaussian_impl(*soft, 0.5, 0.001)),
+            "greedy_match": (lambda: fusion_loops.greedy_match(*match, 0.7),
+                             lambda: fusion_loops._greedy_match_impl(*match, 0.7)),
+            "track_associate": (lambda: ta.track_associate(*assoc, TRACK_IOU_MIN),
+                                lambda: ta._track_associate_impl(*assoc, TRACK_IOU_MIN)),
+        }
+        for name, (op, impl) in entries.items():
+            out[name] = in_turns({"custom_op_ms": op, "impl_ms": impl}, enqueue_ms)
+        out["bev_raster_reduce"]["bare_c_call_ms"] = [enqueue_ms(bare_raster_call(*idx))]
+    op, impl = entries["bev_raster_reduce"]
+    out["bev_raster_reduce_autograd_on"] = in_turns({"custom_op_ms": op, "impl_ms": impl}, enqueue_ms)
+    return out
+
+
+def phase_export(card, tmp_root):
+    """The AOT export on the card: the detector exported with a symbolic
+    batch and at a fixed batch of 8, the fused program at a fixed batch of
+    8; each saved, loaded and run on the card through the kernels, held
+    against the live detectors on the same weights; `cli export` then
+    `cli serve --artifact` with and without --track; a cold start in a
+    fresh process; export, load, first-call and per-batch times; the host
+    enqueue of each kernel entry through its custom op and past it."""
+    import os
+
+    from sfa3d_tpu_torch.cli import export as export_cli
+    from sfa3d_tpu_torch.detector import ArtifactDetector, ArtifactFusedDetector, fused_reply
+    from sfa3d_tpu_torch.ops.track_associate import track_associate
+    from sfa3d_tpu_torch.runtime.export import export_detector, export_fused, letterbox_geometry, save_exported
+
+    loops = [fusion_loops.hard_nms_keep, fusion_loops.soft_nms_gaussian, fusion_loops.greedy_match]
+    rec = {"phase": "export", "card": card["nvidia_smi"]}
+
+    # --- the detector: symbolic and fixed-batch artifacts ---
+    det = Detector(device=DEVICE, seed=SEED)
+    bump_heatmap_bias(det.model)
+    rng = np.random.default_rng(SEED + 21)
+    frames = [bev_ops.filter_and_pad_points(make_scan(rng), N) for _ in range(EXPORT_BATCH)]
+    pts, valid = np.stack([p for p, _ in frames]), np.stack([v for _, v in frames])
+    paths = {}
+    for name, batch in (("symbolic", None), ("batch8", EXPORT_BATCH)):
+        t0 = time.perf_counter()
+        exported, manifest = export_detector(det.model, K=50, peak_thresh=0.2, max_points=N, batch=batch)
+        t1 = time.perf_counter()
+        paths[name] = f"{tmp_root}/detector_{name}.sfa3dt"
+        save_exported(paths[name], exported, manifest)
+        rec[f"detector_{name}"] = {"export_s": t1 - t0, "save_s": time.perf_counter() - t1,
+                                   "file_mb": os.path.getsize(paths[name]) / 1e6,
+                                   "graph_nodes": len(exported.graph.nodes)}
+    t0 = time.perf_counter()
+    ad = ArtifactDetector(paths["symbolic"])
+    rec["detector_symbolic"]["load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, first = counted_call([bev_raster_reduce], lambda: ad.detect_batch(pts[:1], valid[:1]))
+    rec["detector_symbolic"]["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+    if first["bev_raster_reduce"] != 1:
+        raise AssertionError(f"the artifact's first call launched the raster kernel {first} times")
+    fixed = ArtifactDetector(paths["batch8"])
+    checks = {}
+    for label, art, b in (("symbolic_bucket1", ad, 1), ("symbolic_bucket8", ad, 8), ("fixed_bucket8", fixed, 8)):
+        got, launches = counted_call([bev_raster_reduce], lambda: art.detect_batch(pts[:b], valid[:b]))
+        want = det.detect_batch(pts[:b], valid[:b])
+        err, discrete, exact = compare_outputs(got, want)
+        checks[label] = {"launches": launches, "max_abs_err": err, "masks_equal": discrete, "bit_exact": exact,
+                         "detections": int(want["mask"].sum())}
+        if launches["bev_raster_reduce"] != 1 or not discrete or err > EXPORT_TOL or not want["mask"].any():
+            raise AssertionError(f"detector artifact {label} against Detector.detect_batch: {checks[label]}")
+    refused = None
+    try:
+        fixed.detect_batch(pts[:1], valid[:1])
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or f"fixed-batch artifact (batch={EXPORT_BATCH}) cannot run batch 1" not in refused:
+        raise AssertionError(f"the batch-{EXPORT_BATCH} artifact took a batch of 1: {refused}")
+    rec["detector_checks"] = checks
+    rec["detector_batch_ms"] = {
+        f"bucket{b}": in_turns({"live": lambda: det.detect_batch(pts[:b], valid[:b]),
+                                "artifact": lambda: ad.detect_batch(pts[:b], valid[:b])})
+        for b in (1, 8)}
+    rec["detector_batch_ms"]["bucket8_fixed_artifact"] = [host_ms(lambda: fixed.detect_batch(pts, valid))]
+
+    # --- a cold start: a fresh process loads the artifact and calls it once ---
+    np.savez(f"{tmp_root}/cold_frame.npz", pts=pts[:1], valid=valid[:1])
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", COLD_START, paths["symbolic"], f"{tmp_root}/cold_frame.npz",
+                           f"{tmp_root}/cold_boxes.npy"], cwd=root, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the cold-start process failed:\n{proc.stderr[-4000:]}")
+    cold = json.loads(proc.stdout.strip().splitlines()[-1])
+    cold["process_s"] = time.perf_counter() - t0
+    cold_err = float(np.abs(np.load(f"{tmp_root}/cold_boxes.npy") - det.detect_batch(pts[:1], valid[:1])["boxes_real"])
+                     .max())
+    if cold["launches"] != 1 or cold_err > EXPORT_TOL:
+        raise AssertionError(f"cold start: {cold}, boxes off the live detector's by {cold_err}")
+    rec["cold_start"] = {**cold, "max_abs_err": cold_err}
+
+    # --- the fused program at a fixed batch of 8 ---
+    reqs = fused_requests(EXPORT_BATCH)
+    fd = FusedDetector(imgsz=EXPORT_LETTERBOX, device=DEVICE, seed=SEED)
+    bump_fused_biases(fd, yolo_gate_bias(fd.yolo, reqs[0][1], EXPORT_LETTERBOX))
+    t0 = time.perf_counter()
+    exported, manifest = export_fused(fd.kfpn, fd.yolo, batch=EXPORT_BATCH, max_points=N, img_hw=IMG_HW,
+                                      letterbox=EXPORT_LETTERBOX)
+    t1 = time.perf_counter()
+    fused_path = f"{tmp_root}/fused_batch8.sfa3dt"
+    save_exported(fused_path, exported, manifest)
+    rec["fused_batch8"] = {"export_s": t1 - t0, "save_s": time.perf_counter() - t1,
+                           "file_mb": os.path.getsize(fused_path) / 1e6, "graph_nodes": len(exported.graph.nodes),
+                           "letterbox_pad": manifest["letterbox_pad"], "letterbox_scale": manifest["letterbox_scale"]}
+    t0 = time.perf_counter()
+    afd = ArtifactFusedDetector(fused_path)
+    rec["fused_batch8"]["load_s"] = time.perf_counter() - t0
+    scale, pad_x, pad_y = letterbox_geometry(IMG_HW, EXPORT_LETTERBOX)
+    rows = []
+    for points, image, calib in reqs:
+        p, v = bev_ops.filter_and_pad_points(points, N)
+        img, r, pad = letterbox(image, EXPORT_LETTERBOX)
+        if (r, tuple(pad)) != (scale, (pad_x, pad_y)):
+            raise AssertionError(f"the live letterbox gives scale {r}, pad {pad}; the artifact bakes {scale}, "
+                                 f"{(pad_x, pad_y)}")
+        rows.append((p, v, img, *(np.float32(m) for m in (calib.V2C, calib.R0, calib.P2))))
+    inputs = [np.stack(a) for a in zip(*rows)]
+    baked = (np.float32([IMG_HW] * EXPORT_BATCH), np.full(EXPORT_BATCH, scale, np.float32),
+             np.float32([[pad_x, pad_y]] * EXPORT_BATCH))
+    t0 = time.perf_counter()
+    counted_call([bev_raster_reduce, *loops], lambda: afd.run_batch(*inputs))
+    rec["fused_batch8"]["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+    got, fused_launches = counted_call([bev_raster_reduce, *loops], lambda: afd.run_batch(*inputs))
+    want = fd.run_batch(*inputs, *baked)
+    err, discrete, exact = compare_outputs(got, want)
+    sources = np.bincount(np.concatenate([fused_reply(want, i)["source"] for i in range(EXPORT_BATCH)]), minlength=3)
+    unequal = [i for i in range(EXPORT_BATCH) if not replies_equal(fused_reply(got, i), fused_reply(want, i))]
+    rec["fused_checks"] = {"launches": fused_launches, "max_abs_err": err, "discrete_equal": discrete, "bit_exact": exact,
+                           "replies_unequal": unequal, "rows_by_source": sources.tolist()}
+    if any(n != 1 for n in fused_launches.values()) or unequal or not sources[2]:
+        raise AssertionError(f"fused artifact against FusedDetector.run_batch: {rec['fused_checks']}")
+    rec["fused_batch_ms"] = {"bucket8": in_turns({"live": lambda: fd.run_batch(*inputs, *baked),
+                                                  "artifact": lambda: afd.run_batch(*inputs)})}
+
+    # --- the CLIs: export a batch-8 artifact, serve it with and without --track ---
+    cli_root = f"{tmp_root}/export_cli"
+    os.makedirs(cli_root, exist_ok=True)
+    cpu_det = Detector(device="cpu", seed=SEED)
+    bump_heatmap_bias(cpu_det.model)
+    bump_dim_bias(cpu_det.model)
+    ckpt = f"{cli_root}/Model_fpn_resnet_18.pth"
+    torch.save(cpu_det.model.state_dict(), ckpt)
+    cli_path = f"{cli_root}/model_b8.sfa3dt"
+    t0 = time.perf_counter()
+    cli_manifest = export_cli.main(["--pretrained_path", ckpt, "--batch", str(EXPORT_BATCH), "-o", cli_path])
+    rec["cli_export_s"] = time.perf_counter() - t0
+    if cli_manifest["platforms"] != [DEVICE.type] or cli_manifest["batch"] != EXPORT_BATCH:
+        raise AssertionError(f"cli export wrote {cli_manifest}")
+    live = Detector(checkpoint=ckpt, device=DEVICE)
+    requests = serve_requests(np.random.default_rng(SEED + 13), cli_root)[:-1]  # 15 frames: a batch is padded
+    ids = [r["id"] for r in requests]
+    rec["serve_cli"] = {}
+    for track in (False, True):
+        bev_raster_reduce.launches = 0  # count this path's launches only
+        track_associate.launches = 0
+        argv = ["--artifact", cli_path, "--max_delay_ms", "20"] + (["--track"] if track else [])
+        replies, stats, seconds = run_serve_cli(argv, requests)
+        raster, assoc = bev_raster_reduce.launches, track_associate.launches
+        answered = [r for r in replies if "detections" in r]
+        err = 0.0
+        for reply in answered:
+            scan = np.fromfile(requests[ids.index(reply["id"])]["lidar"], np.float32).reshape(-1, 4)
+            a, b = sorted_rows(reply["detections"]), sorted_rows(live.detect(scan))
+            if a.shape != b.shape:
+                raise AssertionError(f"serve --artifact {reply['id']}: {len(a)} detections, live {len(b)}")
+            err = max(err, float(np.abs(a - b).max(initial=0.0)))
+        tracked = [r for r in replies if r.get("tracks")]
+        ok = ([r["id"] for r in replies] == ids and len(answered) == len(ids) - 1
+              and "error" in replies[ids.index("bad")] and raster == stats["batches"]
+              and stats["padded"] == EXPORT_BATCH * stats["batches"] - stats["served"] > 0
+              and err <= EXPORT_CLI_TOL
+              and (not track or (assoc == len(answered) and tracked)))
+        rec["serve_cli"]["track" if track else "detect"] = {
+            "stats": stats, "seconds": seconds, "bev_raster_reduce_launches": raster,
+            "track_associate_launches": assoc, "answered": len(answered), "tracked_replies": len(tracked),
+            "max_abs_err_vs_live": err}
+        if not ok:
+            raise AssertionError(f"serve --artifact{' --track' if track else ''}: {rec['serve_cli']}")
+
+    rec["enqueue_ms"] = export_enqueue_times(pts, valid)
+    emit(rec)
+    return {"detector": {k: c["launches"]["bev_raster_reduce"] for k, c in checks.items()},
+            "fused": fused_launches,
+            "serve_cli": {k: v["bev_raster_reduce_launches"] for k, v in rec["serve_cli"].items()},
+            "serve_cli_track_associate": rec["serve_cli"]["track"]["track_associate_launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3063,6 +3398,7 @@ def main() -> int:
         kitti_launches = phase_kitti_eval(card, root, tmp_root)
         serve_cli_raster_launches, serve_cli_assoc_launches = phase_serve_cli(card, tmp_root)
         argo_launches = phase_argoverse(card, tmp_root)
+        export_launches = phase_export(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -3074,16 +3410,23 @@ def main() -> int:
     raster_rec["launches_by_path"] = {"lidar_serve": lidar_raster_launches,
                                       "fused_serve": fused["bev_raster_reduce"], "train": train_launches,
                                       "kitti_eval": kitti_launches, "serve_cli": serve_cli_raster_launches}
+    raster_rec["launches_by_path"]["export_detector"] = export_launches["detector"]
+    raster_rec["launches_by_path"]["export_fused"] = export_launches["fused"]["bev_raster_reduce"]
+    raster_rec["launches_by_path"]["serve_cli_artifact"] = export_launches["serve_cli"]
     raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
     nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
     nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
                                    "yolo_train_cli": yolo_cli_launches}
     nms_rec["at_yolo_eval_shape"] = nms_eval_shape
+    for rec in loop_recs:
+        rec.setdefault("launches_by_path", {"fused_serve": fused[rec["name"]]})
+        rec["launches_by_path"]["export_fused"] = export_launches["fused"][rec["name"]]
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     track_rec["launches"] = serve_cli_assoc_launches
     track_rec["path"] = "serve --track over stdio: 2 streams x 8 frames, one launch per tracked frame"
-    track_rec["launches_by_path"] = {"serve_cli": serve_cli_assoc_launches, "track": track_launches}
+    track_rec["launches_by_path"] = {"serve_cli": serve_cli_assoc_launches, "track": track_launches,
+                                     "serve_cli_artifact_track": export_launches["serve_cli_track_associate"]}
     argo_rec["launches"] = argo_launches["argoverse_test"]
     argo_rec["path"] = "argoverse_test CLI: 16 sweeps, one launch a sweep"
     argo_rec["launches_by_path"] = argo_launches

@@ -1,5 +1,6 @@
-"""The BEV raster stage and per-batch time of the PyTorch port, on one GPU,
-for one checkout of the repo, so that two commits can be compared in turns.
+"""The BEV raster stage and per-batch time of the PyTorch port's LiDAR and
+fused paths, on one GPU, for one checkout of the repo, so that two commits
+can be compared in turns.
 
     python3 scripts/torch_raster_compare.py [--root DIR] [--label NAME] [--reps 30]
 
@@ -17,6 +18,14 @@ padded points, float32, TF32 off):
   batch_ms_bucket1, batch_ms_bucket8, frames_per_s_bucket8
                 host wall time of one Detector.detect_batch call (numpy in and
                 out, the call the batching server makes), median of --reps
+  raster_enqueue_us
+                host time per bev_raster_reduce call at batch 8, 200 calls
+                with no synchronisation between them (what the caller's
+                thread pays to enqueue the kernel)
+  fused_batch_ms_bucket1, fused_batch_ms_bucket8
+                host wall time of one FusedDetector.run_batch call at the
+                224x640 canvas on 375x1242 frames (chip_smoke's fused_serve
+                weights and requests), median of --reps
 
 The line carries the card's name and power limit from nvidia-smi. Needs
 CUDA; exits non-zero without it.
@@ -113,9 +122,42 @@ def main() -> int:
         out[f"batch_ms_bucket{bucket}"] = wall_ms(
             lambda: det.detect_batch(pts[:bucket], valid[:bucket]))
     out["frames_per_s_bucket8"] = 8 / out["batch_ms_bucket8"] * 1e3
+    with torch.inference_mode():
+        idx = bev_ops.cell_indices_and_keys(pts_d, valid_d)
+        bev_ops.bev_raster_reduce(*idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            bev_ops.bev_raster_reduce(*idx)
+        out["raster_enqueue_us"] = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+    out.update(fused_batch_ms(wall_ms))
     out["card"] = smi
     print(json.dumps(out), flush=True)
     return 0
+
+
+def fused_batch_ms(wall_ms):
+    """{fused_batch_ms_bucket1, fused_batch_ms_bucket8}: FusedDetector.run_batch
+    on chip_smoke's conditioned fused weights and requests."""
+    import numpy as np
+
+    from chip_smoke import CANVAS, IMG_HW, bump_fused_biases, fused_requests, yolo_gate_bias
+    from sfa3d_tpu_torch.detector import FusedDetector
+    from sfa3d_tpu_torch.models.yolov8 import letterbox
+    from sfa3d_tpu_torch.ops.bev import filter_and_pad_points
+
+    reqs = fused_requests(8)
+    fd = FusedDetector(imgsz=CANVAS, device="cuda", seed=0)
+    bump_fused_biases(fd, yolo_gate_bias(fd.yolo, reqs[0][1]))
+    rows = []
+    for points, image, calib in reqs:
+        pts, valid = filter_and_pad_points(points)
+        img, r, pad = letterbox(image, CANVAS)
+        rows.append((pts, valid, img, *(np.float32(m) for m in (calib.V2C, calib.R0, calib.P2)),
+                     np.float32(IMG_HW), np.float32(r), np.float32(pad)))
+    batch = [np.stack(a) for a in zip(*rows)]
+    return {f"fused_batch_ms_bucket{b}": wall_ms(lambda: fd.run_batch(*[a[:b] for a in batch])) for b in (1, 8)}
 
 
 if __name__ == "__main__":

@@ -132,3 +132,12 @@ def finish_launch(fn, name: str, err: int) -> None:
         raise RuntimeError(f"{name} CUDA launch failed: cudaError {err}")
     with _count_lock:
         fn.launches += 1
+
+
+def check_op_device(name: str, tensor) -> None:
+    """A kernel op's fake implementation runs for fake tensors (tracing,
+    export) and for meta tensors; the kernels run on cuda or cpu only, so a
+    meta tensor is refused here as the real implementation refuses any
+    other device."""
+    if tensor.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {tensor.device}")

@@ -2,8 +2,8 @@
 line-delimited JSON requests over stdio or TCP, answered by the batching
 servers (`runtime/serving.py`).
 
-    python -m sfa3d_tpu_torch.cli.serve [--pretrained_path CKPT.pth] [--port 8471]
-        [--max_batch 8] [--max_delay_ms 5] [--track] [--fused] [--platform cpu]
+    python -m sfa3d_tpu_torch.cli.serve [--pretrained_path CKPT.pth | --artifact PATH]
+        [--port 8471] [--max_batch 8] [--max_delay_ms 5] [--track] [--fused] [--platform cpu]
 
 Protocol (one JSON object per line):
   request:  {"id": <any>, "lidar": "/path/to/scan.bin"}
@@ -31,8 +31,17 @@ must arrive in order on one connection.
 TCP mode (--port; 0 picks a free port) takes many connections at once, and
 their requests coalesce into shared device batches. Replies on a
 connection come in request order. It runs on cuda (raising without a GPU)
-unless --platform cpu is given. --artifact (an exported program) and
---compilation_cache (an XLA cache) are JAX-only options and raise.
+unless --platform cpu is given. --compilation_cache (an XLA cache) is a
+JAX-only option and raises.
+
+With --artifact PATH the server runs an exported program (`cli export`,
+`runtime/export.py`): a detector artifact backs the LiDAR server, a fused
+one the fusion server (requests then carry image and calibration); the
+flags that pick the model (--pretrained_path, --arch, --K, --peak_thresh,
+--dtype) are ignored with a warning, since the artifact bakes its own. A
+fixed-batch artifact is served by padding every batch to its size. The
+artifact runs on the device it was exported on, which must be the one
+asked for (cuda, or cpu with --platform cpu).
 """
 
 from __future__ import annotations
@@ -68,7 +77,8 @@ def _parse(argv):
     p.add_argument("--warmup", action="store_true",
                    help="run every batch bucket once before accepting traffic")
     p.add_argument("--artifact", default=None, metavar="PATH",
-                   help="JAX only (an AOT export); raises here")
+                   help="serve an exported program (`cli export`): its manifest's kind picks "
+                        "the LiDAR or the fused server; the model flags are ignored")
     p.add_argument("--track", action="store_true",
                    help="stateful per-stream 3D tracking: replies gain a 'tracks' list "
                         "with stable track ids and velocities. Requests may set 'stream' "
@@ -80,10 +90,6 @@ def _parse(argv):
     p.add_argument("--track_coasting", action="store_true",
                    help="also report unconfirmed and coasting tracks")
     args = p.parse_args(argv)
-    if args.artifact is not None:
-        raise NotImplementedError(
-            "--artifact serves an exported JAX program; sfa3d_tpu_torch has no export format yet "
-            "(serve a .pth checkpoint with --pretrained_path)")
     if args.compilation_cache is not None:
         raise NotImplementedError("--compilation_cache is an XLA cache; sfa3d_tpu_torch compiles nothing ahead")
     return args
@@ -227,14 +233,18 @@ def build_server(args):
     """The batching server (and TrackingSessions with --track) the flags
     ask for, on cuda unless --platform cpu."""
     from sfa3d_tpu_torch.detector import Detector, FusedDetector
+    from sfa3d_tpu_torch.runtime.export import read_manifest
     from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer, BatchingFusedServer
 
+    manifest = read_manifest(args.artifact) if args.artifact else {}
     device = "cpu" if args.platform == "cpu" else None
-    if args.track and args.fused:
+    if args.track and (args.fused or manifest.get("kind") == "fused"):
         raise SystemExit(
             "--track supports the LiDAR detector server only (fused replies carry 2D "
             "fusion output, not 3D boxes in tracker layout)")
-    if args.fused:
+    if args.artifact:
+        server = _artifact_server(args, manifest)
+    elif args.fused:
         fd = FusedDetector(arch=args.arch, checkpoint=args.pretrained_path,
                            yolo_checkpoint=args.yolo_checkpoint, K=args.K,
                            peak_thresh=args.peak_thresh, dtype=args.dtype, device=device)
@@ -247,12 +257,48 @@ def build_server(args):
     if args.track:
         from sfa3d_tpu_torch.runtime.tracking_service import TrackingSessions
 
-        # capacity follows the backing detector's K
+        # capacity follows the backing detector's K (an artifact's own K,
+        # whatever --K says)
         sessions = TrackingSessions(
             K=server.det.K, min_hits=args.track_min_hits, max_age=args.track_max_age,
             iou_min=args.track_iou_min, include_coasting=args.track_coasting,
             device=server.det.device)
     return server, sessions
+
+
+def _artifact_server(args, manifest):
+    """The batching server over the artifact at args.artifact, dispatched on
+    its `manifest`'s kind, as the JAX CLI does."""
+    from sfa3d_tpu_torch.detector import ArtifactDetector, ArtifactFusedDetector
+    from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer, BatchingFusedServer
+
+    # the artifact bakes the model, K and peak_thresh: the flags that would
+    # pick them are dead here, so say so
+    ignored = [f for f, v in [
+        ("--pretrained_path", args.pretrained_path),
+        ("--arch", args.arch if args.arch != "fpn_resnet_18" else None),
+        ("--K", args.K if args.K != 50 else None),
+        ("--peak_thresh", args.peak_thresh if args.peak_thresh != 0.2 else None),
+        ("--dtype", args.dtype if args.dtype != "float32" else None),
+    ] if v is not None]
+    for flag in ignored:
+        print(f"serving: {flag} is IGNORED with --artifact — the value baked into the "
+              "artifact manifest applies (re-export to change it)", file=sys.stderr)
+    platform = args.platform or "cuda"
+    if manifest.get("platforms") != [platform]:
+        raise SystemExit(
+            f"{args.artifact} was exported for {manifest.get('platforms')}; it cannot run on "
+            f"{platform} (re-export with --platform {platform})")
+    kind = manifest.get("kind")
+    if kind == "fused":
+        return BatchingFusedServer(ArtifactFusedDetector(args.artifact), max_batch=args.max_batch,
+                                   max_delay_ms=args.max_delay_ms)
+    if args.fused:
+        raise SystemExit(
+            f"--fused needs a fused artifact; {args.artifact} is kind={kind!r} "
+            "(export with `cli export --fused`)")
+    return BatchingDetectorServer(ArtifactDetector(args.artifact), max_batch=args.max_batch,
+                                  max_delay_ms=args.max_delay_ms)
 
 
 def main(argv=None, stdin=None, stdout=None, ready=None, stop=None):

@@ -15,8 +15,10 @@
 `Detector` returns a list of dicts {'class_id', 'class_name', 'score', 'x',
 'y', 'z', 'h', 'w', 'l', 'yaw'} in the metric velodyne frame.
 `FusedDetector` runs the camera + LiDAR fusion program on a scan, an RGB
-image and its calibration. `write_kitti_results` writes `format_detections`
-records as a KITTI submission-format label file.
+image and its calibration. `ArtifactDetector` and `ArtifactFusedDetector`
+give the same surfaces over an exported program (`runtime/export.py`).
+`write_kitti_results` writes `format_detections` records as a KITTI
+submission-format label file.
 """
 
 from __future__ import annotations
@@ -141,6 +143,118 @@ class Detector:
     def detect_file(self, velodyne_bin: str) -> List[Dict]:
         points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
         return self.detect(points)
+
+
+class ArtifactDetector:
+    """Detector facade over an exported program (`runtime/export.py`): the
+    `detect` / `detect_batch` / `detect_file` surface of `Detector`, with
+    the compute from the artifact, not from model code or a checkpoint. It
+    backs `BatchingDetectorServer` (`cli serve --artifact model.sfa3dt`).
+    Numpy in, numpy out; the device is the one in the manifest.
+
+    Requires a `kind == 'detector'` artifact; symbolic-batch artifacts (the
+    export default) serve every bucket size, while fixed-batch artifacts
+    are served by padding every device batch up to their one size
+    (BatchingDetectorServer does this and clamps max_batch)."""
+
+    def __init__(self, path: str):
+        from sfa3d_tpu_torch.runtime.export import load_exported
+
+        self.artifact = load_exported(path)
+        m = self.artifact.manifest
+        if m.get("kind") != "detector":
+            raise ValueError(
+                f"{path}: artifact kind {m.get('kind')!r} cannot back the "
+                "LiDAR detector server (need kind='detector'; fused "
+                "artifacts take images+calib per request — use "
+                "ArtifactFusedDetector; `cli serve --artifact` dispatches "
+                "on kind)"
+            )
+        self.K = m["K"]
+        self.peak_thresh = m["peak_thresh"]
+        self.max_points = m["max_points"]
+        self.fixed_batch = m["batch"]  # None == symbolic
+        self.device = self.artifact.device
+
+    def detect_batch(self, pts: np.ndarray, valid: np.ndarray) -> Dict[str, np.ndarray]:
+        if pts.shape[1] != self.max_points:
+            raise ValueError(
+                f"artifact was exported for max_points={self.max_points}, "
+                f"got scans padded to {pts.shape[1]}"
+            )
+        if self.fixed_batch is not None and pts.shape[0] != self.fixed_batch:
+            raise ValueError(
+                f"fixed-batch artifact (batch={self.fixed_batch}) cannot "
+                f"run batch {pts.shape[0]}; re-export without --batch for a "
+                "symbolic-batch artifact"
+            )
+        out = self.artifact.call(np.asarray(pts, np.float32), np.asarray(valid, bool))
+        return {k: out[k].cpu().numpy() for k in ("mask", "boxes_real", "detections")}
+
+    def detect(self, points: np.ndarray) -> List[Dict]:
+        from sfa3d_tpu_torch.ops.bev import filter_and_pad_points
+
+        pts, valid = filter_and_pad_points(points, max_points=self.max_points)
+        return format_detections(self.detect_batch(pts[None], valid[None]), 0)
+
+    def detect_file(self, velodyne_bin: str) -> List[Dict]:
+        points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
+        return self.detect(points)
+
+
+class ArtifactFusedDetector:
+    """FusedDetector facade over a fused exported program (`cli export
+    --fused`): the `run_batch` seam that `BatchingFusedServer` drives, with
+    the weights, the fusion settings and the camera's letterbox geometry
+    baked into one file. The letterbox scale and pad are constants of the
+    program, so run_batch takes the per-request hw / scale / pad and drops
+    them; frames must have the baked `img_hw` (checked at submit).
+    `imgsz` is the square letterbox canvas. Numpy in, numpy out."""
+
+    def __init__(self, path: str):
+        from sfa3d_tpu_torch.runtime.export import load_exported
+
+        self.artifact = load_exported(path)
+        m = self.artifact.manifest
+        if m.get("kind") != "fused":
+            raise ValueError(
+                f"{path}: artifact kind {m.get('kind')!r} cannot back the "
+                "fused pipeline (need kind='fused'; export with "
+                "`cli export --fused`)"
+            )
+        self.imgsz = m["letterbox"]
+        self.max_points = m["max_points"]
+        self.img_hw = tuple(m["img_hw"])
+        self.fixed_batch = m["batch"]  # None == symbolic
+        self.device = self.artifact.device
+
+    def run_batch(self, pts, valid, img, V2C, R0, P2, hw=None, scale=None, pad=None) -> Dict[str, np.ndarray]:
+        """The fused program on one batch -> host dict of numpy arrays;
+        hw / scale / pad are baked into the artifact and ignored here."""
+        f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+        out = self.artifact.call(f32(pts), np.asarray(valid, bool), f32(img), f32(V2C), f32(R0), f32(P2))
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def detect(self, points: np.ndarray, image_rgb: np.ndarray, calib) -> Dict[str, np.ndarray]:
+        """One frame through the artifact (FusedDetector.detect's reply)."""
+        from sfa3d_tpu_torch.models.yolov8 import letterbox
+        from sfa3d_tpu_torch.ops.bev import filter_and_pad_points
+
+        h, w = image_rgb.shape[:2]
+        if (h, w) != self.img_hw:
+            raise ValueError(
+                f"frame is {h}x{w} but the artifact bakes img_hw="
+                f"{list(self.img_hw)}; re-export for this camera"
+            )
+        pts, valid = filter_and_pad_points(points, max_points=self.max_points)
+        img, _, _ = letterbox(image_rgb, self.imgsz)
+        out = self.run_batch(
+            pts[None], valid[None], img[None],
+            np.asarray(calib.V2C, np.float32)[None],
+            np.asarray(calib.R0, np.float32)[None],
+            np.asarray(calib.P2, np.float32)[None],
+        )
+        return fused_reply(out, 0)
 
 
 def fused_reply(out: Dict[str, np.ndarray], i: int) -> Dict[str, np.ndarray]:

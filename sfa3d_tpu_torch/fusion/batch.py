@@ -103,27 +103,91 @@ def _fuse_one(
     return fused, source
 
 
-def build_fused_pipeline(
-    kfpn_model,
-    yolo_model,
-    *,
-    K: int = 50,
-    max_yolo: int = 64,  # == fusion.DEFAULT_MAX_YOLO
-    mode: str = "bayesian",
-    use_gaussian_nms: bool = True,
-    peak_thresh: float = 0.2,
-    sfa_conf_gate: float = 0.2,
-    yolo_conf: float = 0.25,
-    yolo_iou: float = 0.45,
-    confidence_threshold: float = 0.25,
-    fusion_iou_threshold: float = 0.7,
-    nms_threshold: float = 0.5,
-    gaussian_sigma: float = 0.5,
-    return_bev: bool = False,
-    bev_size=(608, 608),
-    device: Device = None,
-):
-    """Build the batched fusion step.
+class FusedProgram(torch.nn.Module):
+    """The batched fusion program on tensors already on the models' device:
+    forward(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad)
+    -> the dict `build_fused_pipeline`'s run returns. It holds both models,
+    so the exported fused artifact (`runtime/export.py::export_fused`)
+    traces it with their weights."""
+
+    def __init__(
+        self,
+        kfpn_model,
+        yolo_model,
+        *,
+        K: int = 50,
+        max_yolo: int = 64,  # == fusion.DEFAULT_MAX_YOLO
+        mode: str = "bayesian",
+        use_gaussian_nms: bool = True,
+        peak_thresh: float = 0.2,
+        sfa_conf_gate: float = 0.2,
+        yolo_conf: float = 0.25,
+        yolo_iou: float = 0.45,
+        confidence_threshold: float = 0.25,
+        fusion_iou_threshold: float = 0.7,
+        nms_threshold: float = 0.5,
+        gaussian_sigma: float = 0.5,
+        return_bev: bool = False,
+        bev_size=(608, 608),
+    ):
+        super().__init__()
+        if mode not in FUSION_MODES:
+            raise ValueError(f"unknown fusion mode: {mode!r}")
+        self.kfpn, self.yolo = kfpn_model, yolo_model
+        self.K, self.max_yolo, self.peak_thresh = K, max_yolo, peak_thresh
+        self.sfa_conf_gate, self.yolo_conf, self.yolo_iou = sfa_conf_gate, yolo_conf, yolo_iou
+        self.return_bev, self.bev_size = return_bev, tuple(bev_size)
+        self.fuse_kw = dict(
+            mode=mode,
+            confidence_threshold=confidence_threshold,
+            fusion_iou_threshold=fusion_iou_threshold,
+            nms_threshold=nms_threshold,
+            use_gaussian_nms=use_gaussian_nms,
+            gaussian_sigma=gaussian_sigma,
+        )
+
+    def forward(self, points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad) -> Dict[str, torch.Tensor]:
+        # --- SFA3D (LiDAR) branch ---
+        bev = points_to_bev_nchw(points, valid, bev_height=self.bev_size[0], bev_width=self.bev_size[1])
+        _, boxes_bev, boxes_real, mask = _decode_heads(_heads_nhwc(self.kfpn, bev), self.K, self.peak_thresh)
+        sfa_scores = boxes_bev[..., 1]
+        sfa2d, sfa_valid = project_boxes_to_image(
+            boxes_real, sfa_scores, mask, V2C, R0, P2,
+            img_h=img_hw[:, 0], img_w=img_hw[:, 1], conf_gate=self.sfa_conf_gate,
+        )
+
+        # --- YOLOv8 (camera) branch ---
+        yboxes_all, yscores_all = decode_predictions(forward_levels(self.yolo, images))
+        yb_xyxy, ys, yc, yv = select_detections(
+            yboxes_all, yscores_all, conf_thresh=self.yolo_conf, iou_thresh=self.yolo_iou,
+            max_det=self.max_yolo,
+        )
+        yb = _unletterbox_xywh(yb_xyxy, lb_scale, lb_pad, img_hw)
+
+        # --- fuse ---
+        fused, source = _fuse_one(
+            yb, ys, yc, yv, sfa2d, sfa_scores, boxes_real[..., 0].to(torch.int32), sfa_valid,
+            **self.fuse_kw,
+        )
+        out = {
+            "boxes": fused.boxes,
+            "scores": fused.scores,
+            "classes": fused.classes,
+            "valid": fused.valid,
+            "source": source,
+            "boxes_real": boxes_real,
+            "mask_3d": mask,
+        }
+        if self.return_bev:
+            out["bev"] = bev.permute(0, 2, 3, 1)
+        return out
+
+
+def build_fused_pipeline(kfpn_model, yolo_model, *, device: Device = None, **program_kwargs):
+    """Build the batched fusion step. `program_kwargs` are `FusedProgram`'s
+    (K, max_yolo, mode, use_gaussian_nms, peak_thresh, sfa_conf_gate,
+    yolo_conf, yolo_iou, confidence_threshold, fusion_iou_threshold,
+    nms_threshold, gaussian_sigma, return_bev, bev_size).
 
     Returns run(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad)
     -> dict of tensors on `device` with:
@@ -138,16 +202,7 @@ def build_fused_pipeline(
     tensors. `bev_size` shrinks the raster for small checks; the metric
     decode constants assume 608x608.
     """
-    if mode not in FUSION_MODES:
-        raise ValueError(f"unknown fusion mode: {mode!r}")
-    fuse_kw = dict(
-        mode=mode,
-        confidence_threshold=confidence_threshold,
-        fusion_iou_threshold=fusion_iou_threshold,
-        nms_threshold=nms_threshold,
-        use_gaussian_nms=use_gaussian_nms,
-        gaussian_sigma=gaussian_sigma,
-    )
+    program = FusedProgram(kfpn_model, yolo_model, **program_kwargs)
 
     def run(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad) -> Dict[str, torch.Tensor]:
         dev = resolve_device(device)
@@ -161,40 +216,6 @@ def build_fused_pipeline(
             points, images = f32(points), f32(images)
             valid = torch.as_tensor(valid).to(dev, torch.bool, non_blocking=True)
             V2C, R0, P2, img_hw, lb_scale, lb_pad = map(f32, (V2C, R0, P2, img_hw, lb_scale, lb_pad))
-
-            # --- SFA3D (LiDAR) branch ---
-            bev = points_to_bev_nchw(points, valid, bev_height=bev_size[0], bev_width=bev_size[1])
-            _, boxes_bev, boxes_real, mask = _decode_heads(_heads_nhwc(kfpn_model, bev), K, peak_thresh)
-            sfa_scores = boxes_bev[..., 1]
-            sfa2d, sfa_valid = project_boxes_to_image(
-                boxes_real, sfa_scores, mask, V2C, R0, P2,
-                img_h=img_hw[:, 0], img_w=img_hw[:, 1], conf_gate=sfa_conf_gate,
-            )
-
-            # --- YOLOv8 (camera) branch ---
-            yboxes_all, yscores_all = decode_predictions(forward_levels(yolo_model, images))
-            yb_xyxy, ys, yc, yv = select_detections(
-                yboxes_all, yscores_all, conf_thresh=yolo_conf, iou_thresh=yolo_iou,
-                max_det=max_yolo,
-            )
-            yb = _unletterbox_xywh(yb_xyxy, lb_scale, lb_pad, img_hw)
-
-            # --- fuse ---
-            fused, source = _fuse_one(
-                yb, ys, yc, yv, sfa2d, sfa_scores, boxes_real[..., 0].to(torch.int32), sfa_valid,
-                **fuse_kw,
-            )
-        out = {
-            "boxes": fused.boxes,
-            "scores": fused.scores,
-            "classes": fused.classes,
-            "valid": fused.valid,
-            "source": source,
-            "boxes_real": boxes_real,
-            "mask_3d": mask,
-        }
-        if return_bev:
-            out["bev"] = bev.permute(0, 2, 3, 1)
-        return out
+            return program(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad)
 
     return run

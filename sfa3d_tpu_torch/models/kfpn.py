@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sfa3d_tpu_torch.device import device_constant
 from sfa3d_tpu_torch.models.resnet import ResNetBackbone, stage_channels
 
 HEADS: Dict[str, int] = {
@@ -57,7 +58,7 @@ def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
     return A
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _interp_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     # one copy per device and dtype: a host-to-device copy of pageable
     # memory synchronizes the stream, which on every forward would stall

@@ -39,7 +39,6 @@ over the whole frame.
 
 from __future__ import annotations
 
-import functools
 import warnings
 from typing import Dict, Tuple
 
@@ -47,6 +46,7 @@ import numpy as np
 import torch
 
 from sfa3d_tpu_torch.config import kitti as cnf
+from sfa3d_tpu_torch.device import device_constant
 from sfa3d_tpu_torch.ops.bev_counts import _f32_reciprocal, argoverse_raster_reduce, bev_raster_reduce
 
 _BOUND = (
@@ -262,7 +262,7 @@ def quantize_points_uint16(points: np.ndarray) -> np.ndarray:
     return np.clip(q, 0, 65535).astype(np.uint16)
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _dequantize_constants(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     # one copy per device: a pageable host-to-device copy syncs the stream;
     # made outside inference mode, like the upsample's matrices

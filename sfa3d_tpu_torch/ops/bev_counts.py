@@ -33,10 +33,16 @@ Unlike the TPU kernel, which asserts N % 128 == 0 (bev_pallas.py:80; its
 docstring says 512), the port accepts any N. Indices outside the raster
 count nowhere.
 
-Each entry launches its kernels for CUDA tensors (or raises) and takes its
-plain PyTorch version (`*_plain`) only for tensors on the CPU. Each keeps a
-`launches` counter (one a call), so a run can show that the served path
-went through the kernel.
+Each entry is a `torch.library.custom_op` (`sfa3d_torch::<entry>`), so
+`torch.export` and graph captures see it as one op with a shape-only fake
+implementation. It launches its kernels for CUDA tensors (or raises) and
+takes its plain PyTorch version (`*_plain`) only for tensors on the CPU.
+Each keeps a `launches` counter (one a real CUDA launch; fake and traced
+calls count nothing), so a run can show that the served path went through
+the kernel. `_<entry>_impl` is an op's real implementation, callable past
+the dispatcher (to time what the dispatcher adds). The tile design's Argoverse entry,
+`argoverse_raster_reduce_tile_cuda`, stays a plain C call, kept to be
+compared with.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sfa3d_tpu_torch._build import finish_launch, load_library
+from sfa3d_tpu_torch._build import check_op_device, finish_launch, load_library
 
 H = 608
 W = 608
@@ -270,12 +276,7 @@ def bev_cell_counts_plain(row: torch.Tensor, col: torch.Tensor,
     return counts.view(b, H, W).float()
 
 
-def bev_cell_counts(row: torch.Tensor, col: torch.Tensor,
-                    H: int = H, W: int = W) -> torch.Tensor:
-    """(B, N) int32 cell indices (-1 = invalid) -> (B, H, W) float32 exact
-    per-cell point counts. CUDA tensors launch the counts instantiation of
-    `csrc/bev_counts.cu` (one launch); CPU tensors take
-    `bev_cell_counts_plain`."""
+def _bev_cell_counts_impl(row: torch.Tensor, col: torch.Tensor, H: int, W: int) -> torch.Tensor:
     _check(row, col)
     if row.device.type == "cpu":
         return bev_cell_counts_plain(row, col, H, W)
@@ -289,6 +290,25 @@ def bev_cell_counts(row: torch.Tensor, col: torch.Tensor,
     )
     finish_launch(bev_cell_counts, "bev_cell_counts", err)
     return out
+
+
+_bev_cell_counts_op = torch.library.custom_op("sfa3d_torch::bev_cell_counts", _bev_cell_counts_impl, mutates_args=())
+
+
+@_bev_cell_counts_op.register_fake
+def _(row, col, H, W):
+    _check(row, col)
+    check_op_device("bev_cell_counts", row)
+    return row.new_empty((row.shape[0], H, W), dtype=torch.float32)
+
+
+def bev_cell_counts(row: torch.Tensor, col: torch.Tensor,
+                    H: int = H, W: int = W) -> torch.Tensor:
+    """(B, N) int32 cell indices (-1 = invalid) -> (B, H, W) float32 exact
+    per-cell point counts, through the custom op `sfa3d_torch::bev_cell_counts`.
+    CUDA tensors launch the counts instantiation of `csrc/bev_counts.cu`
+    (one launch); CPU tensors take `bev_cell_counts_plain`."""
+    return _bev_cell_counts_op(row, col, H, W)
 
 
 def bev_raster_reduce_plain(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
@@ -322,12 +342,8 @@ def bev_raster_reduce_plain(row: torch.Tensor, col: torch.Tensor, key: torch.Ten
     return bev.view(b, 3, H, W)
 
 
-def bev_raster_reduce(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
-                      H: int = H, W: int = W) -> torch.Tensor:
-    """(B, N) int32 row, col and packed key -> (B, 3, H, W) float32 raster
-    (see `bev_raster_reduce_plain`). CUDA tensors launch the raster
-    instantiation of `csrc/bev_counts.cu` (one launch); CPU tensors take
-    `bev_raster_reduce_plain`."""
+def _bev_raster_reduce_impl(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
+                          H: int, W: int) -> torch.Tensor:
     _check(row, col, key)
     if row.device.type == "cpu":
         return bev_raster_reduce_plain(row, col, key, H, W)
@@ -342,6 +358,26 @@ def bev_raster_reduce(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
     )
     finish_launch(bev_raster_reduce, "bev_raster_reduce", err)
     return out
+
+
+_bev_raster_reduce_op = torch.library.custom_op("sfa3d_torch::bev_raster_reduce", _bev_raster_reduce_impl, mutates_args=())
+
+
+@_bev_raster_reduce_op.register_fake
+def _(row, col, key, H, W):
+    _check(row, col, key)
+    check_op_device("bev_raster_reduce", row)
+    return row.new_empty((row.shape[0], 3, H, W), dtype=torch.float32)
+
+
+def bev_raster_reduce(row: torch.Tensor, col: torch.Tensor, key: torch.Tensor,
+                      H: int = H, W: int = W) -> torch.Tensor:
+    """(B, N) int32 row, col and packed key -> (B, 3, H, W) float32 raster
+    (see `bev_raster_reduce_plain`), through the custom op
+    `sfa3d_torch::bev_raster_reduce`. CUDA tensors launch the raster
+    instantiation of `csrc/bev_counts.cu` (one launch); CPU tensors take
+    `bev_raster_reduce_plain`."""
+    return _bev_raster_reduce_op(row, col, key, H, W)
 
 
 def argoverse_raster_reduce_plain(row: torch.Tensor, col: torch.Tensor, z: torch.Tensor,
@@ -368,13 +404,8 @@ def argoverse_raster_reduce_plain(row: torch.Tensor, col: torch.Tensor, z: torch
     return torch.stack([count, cell_max(z), cell_max(r)], dim=1).view(b, 3, H, W)
 
 
-def argoverse_raster_reduce(row: torch.Tensor, col: torch.Tensor, z: torch.Tensor,
-                            r: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """(B, N) int32 row, col and float32 z, r -> (B, 3, H, W) float32
-    [count, max z, max r] per cell (see `argoverse_raster_reduce_plain`).
-    CUDA tensors launch the three Argoverse kernels of `csrc/bev_counts.cu`
-    (`argoverse_band_launch`; one call counts one launch) or raise; CPU
-    tensors take `argoverse_raster_reduce_plain`."""
+def _argoverse_raster_reduce_impl(row: torch.Tensor, col: torch.Tensor, z: torch.Tensor,
+                                r: torch.Tensor, H: int, W: int) -> torch.Tensor:
     _check(row, col)
     _check_values(row, z, r)
     if row.device.type == "cpu":
@@ -385,6 +416,28 @@ def argoverse_raster_reduce(row: torch.Tensor, col: torch.Tensor, z: torch.Tenso
     out, err = argoverse_band_launch(lib, dev, row, col, z, r, H, W, plan)
     finish_launch(argoverse_raster_reduce, "argoverse_raster_reduce", err)
     return out
+
+
+_argoverse_raster_reduce_op = torch.library.custom_op("sfa3d_torch::argoverse_raster_reduce", _argoverse_raster_reduce_impl, mutates_args=())
+
+
+@_argoverse_raster_reduce_op.register_fake
+def _(row, col, z, r, H, W):
+    _check(row, col)
+    _check_values(row, z, r)
+    check_op_device("argoverse_raster_reduce", row)
+    return row.new_empty((row.shape[0], 3, H, W), dtype=torch.float32)
+
+
+def argoverse_raster_reduce(row: torch.Tensor, col: torch.Tensor, z: torch.Tensor,
+                            r: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(B, N) int32 row, col and float32 z, r -> (B, 3, H, W) float32
+    [count, max z, max r] per cell (see `argoverse_raster_reduce_plain`),
+    through the custom op `sfa3d_torch::argoverse_raster_reduce`. CUDA
+    tensors launch the three Argoverse kernels of `csrc/bev_counts.cu`
+    (`argoverse_band_launch`; one call counts one launch) or raise; CPU
+    tensors take `argoverse_raster_reduce_plain`."""
+    return _argoverse_raster_reduce_op(row, col, z, r, H, W)
 
 
 def argoverse_band_launch(lib: ctypes.CDLL, dev: torch.device, row: torch.Tensor,

@@ -25,10 +25,14 @@ while Ky <= `greedy_match_matrix_rows(Ks)` the key-matrix kernel; above
 that, a block kernel with one thread per slot that recomputes a row of IoUs
 and takes a block argmax per step.
 
-Each entry launches a kernel for CUDA tensors (or raises) and takes its
-plain version (`*_plain`: a Python loop over the K steps, vectorised over
-frames) only for tensors on the CPU. Each keeps a `launches` counter (both
-designs of an entry count under its one counter). A frame holds
+Each entry is a `torch.library.custom_op` (`sfa3d_torch::<entry>`, with a
+shape-only fake implementation), so `torch.export` keeps it one op. It
+launches a kernel for CUDA tensors (or raises) and takes its plain version
+(`*_plain`: a Python loop over the K steps, vectorised over frames) only
+for tensors on the CPU. Each keeps a `launches` counter of real CUDA
+launches (both designs of an entry count under its one counter).
+`_<entry>_impl` is an op's real implementation, callable past the
+dispatcher. A frame holds
 at most 1024 slots (the K of hard NMS and soft-NMS, Ky and Ks of the
 match); the wrappers raise above that.
 """
@@ -41,7 +45,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sfa3d_tpu_torch._build import finish_launch, load_library
+from sfa3d_tpu_torch._build import check_op_device, finish_launch, load_library
 from sfa3d_tpu_torch.fusion.iou import pairwise_iou_xywh
 
 MAX_SLOTS = 1024  # slots per frame: one per thread of a block, 32 words of 32 bits
@@ -161,12 +165,7 @@ def hard_nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold:
     return keep
 
 
-def hard_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """(B, K, 4) float32 xywh boxes, already in stable descending score
-    order, + (B, K) bool valid -> (B, K) bool keep, in the same order. CUDA
-    tensors launch `hard_nms_keep_kernel` (one launch, one cluster of blocks
-    per frame: the suppression bitmask, then a one-warp scan); CPU tensors
-    take `hard_nms_keep_plain`."""
+def _hard_nms_keep_impl(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     _check_set(boxes, valid, what="hard_nms_keep")
     if boxes.device.type == "cpu":
         return hard_nms_keep_plain(boxes, valid, iou_threshold)
@@ -181,6 +180,26 @@ def hard_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
     )
     finish_launch(hard_nms_keep, "hard_nms_keep", err)
     return keep
+
+
+_hard_nms_keep_op = torch.library.custom_op("sfa3d_torch::hard_nms_keep", _hard_nms_keep_impl, mutates_args=())
+
+
+@_hard_nms_keep_op.register_fake
+def _(boxes, valid, iou_threshold):
+    _check_set(boxes, valid, what="hard_nms_keep")
+    check_op_device("hard_nms_keep", boxes)
+    return valid.new_empty(valid.shape)
+
+
+def hard_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """(B, K, 4) float32 xywh boxes, already in stable descending score
+    order, + (B, K) bool valid -> (B, K) bool keep, in the same order,
+    through the custom op `sfa3d_torch::hard_nms_keep`. CUDA tensors launch
+    `hard_nms_keep_kernel` (one launch, one cluster of blocks per frame: the
+    suppression bitmask, then a one-warp scan); CPU tensors take
+    `hard_nms_keep_plain`."""
+    return _hard_nms_keep_op(boxes, valid, iou_threshold)
 
 
 # ---------------------------------------------------------------------------
@@ -214,16 +233,15 @@ def soft_nms_gaussian_plain(boxes: torch.Tensor, scores: torch.Tensor, valid: to
     return out, valid & (out > score_thresh)
 
 
-def soft_nms_gaussian(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-                      sigma: float = 0.5, score_thresh: float = 0.001):
-    """(B, K, 4) float32 xywh boxes + (B, K) float32 scores + (B, K) bool
-    valid -> (decayed scores (B, K), surviving mask (B, K)), in slot order.
-    CUDA tensors launch one kernel: `soft_nms_matrix_kernel` when K <=
-    `soft_nms_matrix_slots` of the card's shared memory, else
-    `soft_nms_block_kernel`. CPU tensors take `soft_nms_gaussian_plain`."""
+def _check_soft_nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor) -> None:
     _check_set(boxes, valid, what="soft_nms_gaussian")
     if scores.shape != valid.shape or scores.dtype != torch.float32:
         raise ValueError(f"soft_nms_gaussian: scores must be float32 {tuple(valid.shape)}")
+
+
+def _soft_nms_gaussian_impl(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                          sigma: float, score_thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_soft_nms(boxes, scores, valid)
     if boxes.device.type == "cpu":
         return soft_nms_gaussian_plain(boxes, scores, valid, sigma, score_thresh)
     b, k = valid.shape
@@ -241,6 +259,27 @@ def soft_nms_gaussian(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Te
     )
     finish_launch(soft_nms_gaussian, "soft_nms_gaussian", err)
     return out, surv
+
+
+_soft_nms_gaussian_op = torch.library.custom_op("sfa3d_torch::soft_nms_gaussian", _soft_nms_gaussian_impl, mutates_args=())
+
+
+@_soft_nms_gaussian_op.register_fake
+def _(boxes, scores, valid, sigma, score_thresh):
+    _check_soft_nms(boxes, scores, valid)
+    check_op_device("soft_nms_gaussian", boxes)
+    return scores.new_empty(scores.shape), valid.new_empty(valid.shape)
+
+
+def soft_nms_gaussian(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+                      sigma: float = 0.5, score_thresh: float = 0.001):
+    """(B, K, 4) float32 xywh boxes + (B, K) float32 scores + (B, K) bool
+    valid -> (decayed scores (B, K), surviving mask (B, K)), in slot order,
+    through the custom op `sfa3d_torch::soft_nms_gaussian`. CUDA tensors
+    launch one kernel: `soft_nms_matrix_kernel` when K <=
+    `soft_nms_matrix_slots` of the card's shared memory, else
+    `soft_nms_block_kernel`. CPU tensors take `soft_nms_gaussian_plain`."""
+    return _soft_nms_gaussian_op(boxes, scores, valid, sigma, score_thresh)
 
 
 # ---------------------------------------------------------------------------
@@ -283,20 +322,18 @@ def greedy_match_candidate_rows(yolo_boxes: torch.Tensor, yolo_valid: torch.Tens
     return pair.any(2).sum(1)
 
 
-def greedy_match(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
-                 sfa_boxes: torch.Tensor, sfa_valid: torch.Tensor, iou_threshold: float):
-    """(B, Ky, 4) + (B, Ky) YOLO boxes and valid, (B, Ks, 4) + (B, Ks) SFA
-    boxes and valid -> (match_idx (B, Ky) int32, index into the SFA boxes or
-    -1; sfa_matched (B, Ks) bool). CUDA tensors launch one kernel:
-    `greedy_match_kernel` (the key matrix) when Ky <=
-    `greedy_match_matrix_rows(Ks)` of the card's shared memory, else
-    `greedy_match_block_kernel`. CPU tensors take `greedy_match_plain`."""
+def _check_match(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid) -> None:
     _check_set(yolo_boxes, yolo_valid, what="greedy_match")
     _check_set(sfa_boxes, sfa_valid, what="greedy_match")
     if yolo_boxes.shape[0] != sfa_boxes.shape[0]:
         raise ValueError(f"greedy_match: {yolo_boxes.shape[0]} YOLO frames, {sfa_boxes.shape[0]} SFA frames")
     if sfa_boxes.shape[1] == 0:
         raise ValueError("greedy_match needs at least one SFA slot")
+
+
+def _greedy_match_impl(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor, sfa_boxes: torch.Tensor,
+                     sfa_valid: torch.Tensor, iou_threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_match(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid)
     if yolo_boxes.device.type == "cpu":
         return greedy_match_plain(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid, iou_threshold)
     b, ky = yolo_valid.shape
@@ -317,6 +354,28 @@ def greedy_match(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
     )
     finish_launch(greedy_match, "greedy_match", err)
     return match_idx, sfa_matched
+
+
+_greedy_match_op = torch.library.custom_op("sfa3d_torch::greedy_match", _greedy_match_impl, mutates_args=())
+
+
+@_greedy_match_op.register_fake
+def _(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid, iou_threshold):
+    _check_match(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid)
+    check_op_device("greedy_match", yolo_boxes)
+    return yolo_valid.new_empty(yolo_valid.shape, dtype=torch.int32), sfa_valid.new_empty(sfa_valid.shape)
+
+
+def greedy_match(yolo_boxes: torch.Tensor, yolo_valid: torch.Tensor,
+                 sfa_boxes: torch.Tensor, sfa_valid: torch.Tensor, iou_threshold: float):
+    """(B, Ky, 4) + (B, Ky) YOLO boxes and valid, (B, Ks, 4) + (B, Ks) SFA
+    boxes and valid -> (match_idx (B, Ky) int32, index into the SFA boxes or
+    -1; sfa_matched (B, Ks) bool), through the custom op
+    `sfa3d_torch::greedy_match`. CUDA tensors launch one kernel:
+    `greedy_match_kernel` (the key matrix) when Ky <=
+    `greedy_match_matrix_rows(Ks)` of the card's shared memory, else
+    `greedy_match_block_kernel`. CPU tensors take `greedy_match_plain`."""
+    return _greedy_match_op(yolo_boxes, yolo_valid, sfa_boxes, sfa_valid, iou_threshold)
 
 
 hard_nms_keep.launches = 0

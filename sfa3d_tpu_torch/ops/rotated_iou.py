@@ -16,15 +16,15 @@ l along its local x; 3D (x, y, z, h, w, l, yaw) velodyne boxes.
 
 from __future__ import annotations
 
-import functools
-
 import torch
+
+from sfa3d_tpu_torch.device import device_constant
 
 MAX_VERTS = 8
 _LOCAL = ((0.5, 0.5), (-0.5, 0.5), (-0.5, -0.5), (0.5, -0.5))
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _local_corners(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     # one copy per device and dtype: a copy from pageable host memory
     # synchronizes the stream; made outside inference mode for any caller

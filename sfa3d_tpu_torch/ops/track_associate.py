@@ -19,8 +19,11 @@ the kernel, chosen by shape against the card's shared memory
 `track_associate_plain`. The matrix design (T <= 256) keys the frame's IoU
 matrix into shared memory and walks only the candidate rows
 (`track_associate_candidate_rows`); the row design, for larger shapes, reads
-a row from global memory each step. The wrapper keeps a `launches` counter
-(both designs count under it).
+a row from global memory each step. The entry is a `torch.library.custom_op`
+(`sfa3d_torch::track_associate`, with a shape-only fake implementation) and
+keeps a `launches` counter of real CUDA launches (both designs count under
+it); `_track_associate_impl` is the op's real implementation, callable past
+the dispatcher.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from sfa3d_tpu_torch._build import finish_launch, load_library
+from sfa3d_tpu_torch._build import check_op_device, finish_launch, load_library
 
 MATRIX_SLOTS_PER_LANE = 8  # the matrix design's columns a lane holds in registers: T <= 256
 
@@ -151,12 +154,7 @@ def _launch(lib: ctypes.CDLL, dev: torch.device, design: str, iou: torch.Tensor,
     return err, det_match, trk_used
 
 
-def track_associate(iou: torch.Tensor, order: torch.Tensor, iou_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, K, T) float32 gated IoU + (B, K) int32 order -> (det_match (B, K)
-    int32, trk_used (B, T) bool). CUDA tensors launch one kernel:
-    `track_associate_matrix_kernel` or `track_associate_row_kernel`, as
-    `track_associate_design` picks by (K, T) from the card's shared memory;
-    CPU tensors take `track_associate_plain`."""
+def _track_associate_impl(iou: torch.Tensor, order: torch.Tensor, iou_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(iou, order)
     if iou.device.type == "cpu":
         return track_associate_plain(iou, order, iou_min)
@@ -168,6 +166,27 @@ def track_associate(iou: torch.Tensor, order: torch.Tensor, iou_min: float) -> T
     err, det_match, trk_used = _launch(lib, dev, design, iou, order, iou_min)
     finish_launch(track_associate, "track_associate", err)
     return det_match, trk_used
+
+
+_track_associate_op = torch.library.custom_op("sfa3d_torch::track_associate", _track_associate_impl, mutates_args=())
+
+
+@_track_associate_op.register_fake
+def _(iou, order, iou_min):
+    _check(iou, order)
+    check_op_device("track_associate", iou)
+    b, k, t = iou.shape
+    return order.new_empty((b, k)), iou.new_empty((b, t), dtype=torch.bool)
+
+
+def track_associate(iou: torch.Tensor, order: torch.Tensor, iou_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, K, T) float32 gated IoU + (B, K) int32 order -> (det_match (B, K)
+    int32, trk_used (B, T) bool), through the custom op
+    `sfa3d_torch::track_associate`. CUDA tensors launch one kernel:
+    `track_associate_matrix_kernel` or `track_associate_row_kernel`, as
+    `track_associate_design` picks by (K, T) from the card's shared memory;
+    CPU tensors take `track_associate_plain`."""
+    return _track_associate_op(iou, order, iou_min)
 
 
 track_associate.launches = 0

@@ -86,19 +86,24 @@ def detect_frames(
     with torch.inference_mode():
         points = torch.as_tensor(points).to(dev, non_blocking=True)
         valid = torch.as_tensor(valid).to(dev, non_blocking=True)
-        bev = points_to_bev_nchw(points, valid)
-        outputs = _heads_nhwc(model, bev)
-        dets, boxes_bev, boxes_real, mask = _decode_heads(outputs, K, peak_thresh)
-    out = {
-        "bev": bev.permute(0, 2, 3, 1),
-        "detections": dets,
-        "boxes_bev": boxes_bev,
-        "boxes_real": boxes_real,
-        "mask": mask,
-    }
+        bev, outputs, out = detect_program(model, points, valid, K, peak_thresh)
+    out = {"bev": bev.permute(0, 2, 3, 1), **out}
     if return_heads:
         out["heads"] = outputs
     return out
+
+
+def detect_program(model, points: torch.Tensor, valid: torch.Tensor, K: int,
+                   peak_thresh: float):
+    """`detect_frames`' program on tensors already on the model's device:
+    raster, heads, decode -> (bev (B, 3, H, W), the raw head dict, {
+    'detections', 'boxes_bev', 'boxes_real', 'mask'}). The exported
+    detector (`runtime/export.py`) traces this same function."""
+    bev = points_to_bev_nchw(points, valid)
+    outputs = _heads_nhwc(model, bev)
+    dets, boxes_bev, boxes_real, mask = _decode_heads(outputs, K, peak_thresh)
+    return bev, outputs, {"detections": dets, "boxes_bev": boxes_bev,
+                          "boxes_real": boxes_real, "mask": mask}
 
 
 def detect_bev(

@@ -15,6 +15,12 @@ short batches are zero-padded and the padding frames cost callers nothing.
     fut = server.submit_fused(points, image_rgb, calib)
     reply = fut.result()                 # FusedDetector.detect's dict
 
+Both servers also run over exported programs (`detector.py::
+ArtifactDetector`, `ArtifactFusedDetector`): the point budget comes from
+the artifact, a fixed-batch artifact pads every batch to its one size
+(max_batch is clamped to it), and a fused artifact refuses at submit a
+frame whose size is not the baked `img_hw`.
+
 Threading model: ONE dispatch thread makes every device call; request
 threads only prepare their frame on the host (scan filter and pad, and the
 letterbox for the fused server, on the caller's thread), enqueue it and
@@ -49,7 +55,19 @@ class BatchingDetectorServer:
 
     def __init__(self, detector, max_batch: int = 8, max_delay_ms: float = 5.0):
         self.det = detector
-        self._P = cnf.MAX_POINTS_FILTERED
+        # an artifact carries its export-time point budget; live detectors
+        # take the production constant
+        self._P = getattr(detector, "max_points", cnf.MAX_POINTS_FILTERED)
+        # a fixed-batch artifact runs exactly one batch size: every bucket
+        # is padded to it, and max_batch cannot exceed it
+        self._fixed_bucket = getattr(detector, "fixed_batch", None)
+        if self._fixed_bucket is not None and max_batch > self._fixed_bucket:
+            print(
+                f"serving: clamping max_batch {max_batch} -> "
+                f"{self._fixed_bucket} (fixed-batch artifact)",
+                file=sys.stderr,
+            )
+            max_batch = self._fixed_bucket
         self.max_batch = max(1, int(max_batch))
         self.max_delay_s = max_delay_ms / 1000.0
         self._q: "queue.Queue" = queue.Queue()
@@ -86,8 +104,10 @@ class BatchingDetectorServer:
         return self.submit(points)
 
     def buckets(self):
-        """Every batch size the server runs: powers of two below max_batch,
-        plus max_batch itself."""
+        """Every batch size the server runs: a fixed-batch artifact's one
+        size, else powers of two below max_batch, plus max_batch itself."""
+        if self._fixed_bucket is not None:
+            return [self._fixed_bucket]
         out, b = [], 1
         while b < self.max_batch:
             out.append(b)
@@ -174,9 +194,16 @@ class BatchingDetectorServer:
             if sentinel_seen:
                 return
 
+    def _bucket(self, n: int) -> int:
+        """The batch size that runs n requests: a fixed-batch artifact's one
+        size, else the next power of two capped at max_batch."""
+        if self._fixed_bucket is not None:
+            return self._fixed_bucket
+        return min(_next_pow2(n), self.max_batch)
+
     def _run_batch(self, batch):
         n = len(batch)
-        bucket = min(_next_pow2(n), self.max_batch)
+        bucket = self._bucket(n)
         P = batch[0][0].shape[0]
         pts = np.zeros((bucket, P, 4), np.float32)
         valid = np.zeros((bucket, P), bool)
@@ -225,6 +252,14 @@ class BatchingFusedServer(BatchingDetectorServer):
         from sfa3d_tpu_torch.models.yolov8 import letterbox
 
         h, w = image_rgb.shape[:2]
+        baked_hw = getattr(self.fd, "img_hw", None)
+        if baked_hw is not None and (h, w) != tuple(baked_hw):
+            # an artifact bakes the letterbox geometry; a frame of another
+            # size would be projected wrongly without a word
+            raise ValueError(
+                f"frame is {h}x{w} but the fused artifact bakes img_hw="
+                f"{list(baked_hw)}; re-export for this camera"
+            )
         img, r, (pad_w, pad_h) = letterbox(image_rgb, self.fd.imgsz)
         req = dict(
             pts=pts, valid=valid, img=img,
@@ -254,7 +289,7 @@ class BatchingFusedServer(BatchingDetectorServer):
 
     def _run_batch(self, batch):
         n = len(batch)
-        bucket = min(_next_pow2(n), self.max_batch)
+        bucket = self._bucket(n)
         reqs = [req for req, _, _ in batch]
 
         def stack(key, fill=None):

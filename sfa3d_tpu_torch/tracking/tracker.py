@@ -26,13 +26,12 @@ step runs on the state's device and copies nothing to the host.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from sfa3d_tpu_torch.device import Device, resolve_device
+from sfa3d_tpu_torch.device import Device, device_constant, resolve_device
 from sfa3d_tpu_torch.ops.rotated_iou import pairwise_iou_bev_rotated
 from sfa3d_tpu_torch.ops.track_associate import track_associate
 
@@ -89,7 +88,7 @@ class TrackState:
 _CONSTANTS = {"F": _F, "H": _H, "P0": _P0, "Q": _Q, "R": _R, "I": np.eye(DIM_X, dtype=np.float32)}
 
 
-@functools.lru_cache(maxsize=None)
+@device_constant
 def _consts(device: torch.device) -> Dict[str, torch.Tensor]:
     """The filter's constant matrices on `device`, copied there once: a copy
     from pageable host memory synchronizes the stream, which on every step

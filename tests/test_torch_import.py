@@ -34,7 +34,8 @@ def test_port_imports_without_jax():
                  "parallel.yolo_step", "eval.map2d", "eval.kitti_eval", "ops.rotated_iou", "cli.yolo_train",
                  "cli.eval", "tracking.tracker", "tracking.metrics", "ops.track_associate",
                  "runtime.tracking_service", "cli.serve", "models.centernet_deconv", "config.argoverse",
-                 "geometry.se3", "geometry.argoverse_calib", "data.argoverse", "cli.argoverse_test"):
+                 "geometry.se3", "geometry.argoverse_calib", "data.argoverse", "cli.argoverse_test",
+                 "runtime.export", "cli.export", "cli.__main__"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -1,7 +1,8 @@
 """The port's serving layer with tracking on the CPU: `TrackingSessions`
 (mirroring tests/test_serving.py:269-326 and held against the JAX
 `TrackingSessions` fed the same detections) and `python -m
-sfa3d_tpu_torch.cli.serve` over stdio and TCP, with --track and --fused.
+sfa3d_tpu_torch.cli.serve` over stdio and TCP, with --track and --fused
+(its --artifact path: tests/test_torch_export.py).
 
 Tolerances: detections within DET_ATOL of the port's own `Detector.detect`
 on the same checkpoint (the server runs padded batches of 1-8 frames, whose
@@ -332,9 +333,11 @@ def test_serve_fused_reads_png_frames(checkpoint, scans, tmp_path):
     assert len(got["boxes_3d"]) > 0
 
 
-def test_serve_refuses_jax_only_options_and_fused_tracking(checkpoint):
-    with pytest.raises(NotImplementedError, match="--artifact"):
-        serve.main(["--artifact", "model.sfa3dx", "--platform", "cpu"])
+def test_serve_refuses_jax_only_options_and_fused_tracking(checkpoint, tmp_path):
+    jax_artifact = tmp_path / "model.sfa3dx"  # the JAX export's header: magic, manifest length, manifest
+    jax_artifact.write_bytes(b"SFA3DX01" + (2).to_bytes(8, "little") + b"{}")
+    with pytest.raises(ValueError, match="JAX StableHLO artifact"):
+        serve.main(["--artifact", str(jax_artifact), "--platform", "cpu"])
     with pytest.raises(NotImplementedError, match="--compilation_cache"):
         serve.main(["--compilation_cache", "--platform", "cpu"])
     with pytest.raises(SystemExit, match="--track"):
