@@ -1,6 +1,7 @@
 """Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths,
-its KFPN and YOLOv8 training paths, its evaluation and the serve CLI with
-per-stream tracking on one NVIDIA GPU and check them.
+its KFPN and YOLOv8 training paths, its evaluation, the serve CLI with
+per-stream tracking and the test and fuse CLIs on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -177,6 +178,23 @@ Phases, each printing one JSON line:
           ms, ms a batch of the artifact and of the live detector in turns;
           the host enqueue ms of every kernel entry through its custom op
           and past the dispatcher (the raster also as a bare C call)
+  viz_cli  the test and fuse CLIs (numpy drawing, PNG files) over a
+          4-frame mini-KITTI of the port's writer, in process: test
+          --save_test_output on the card and with --platform cpu (the same
+          8 files a frame, one bev_raster_reduce launch a frame on the card
+          and none on the CPU, the raw BEV dumps equal, the composites equal
+          on every frame whose integer box corners are equal, counted and
+          printed, and at least one such frame); fuse on the card in the nms (--side_by_side), weighted,
+          bayesian and bayesian --gaussian_nms modes, with each kernel's
+          launches a frame checked (raster 1; hard_nms_keep 1 for YOLO, +1
+          after fusion without soft-NMS; greedy_match 1 in weighted and
+          bayesian; soft_nms_gaussian 1 with --gaussian_nms); bayesian
+          --gaussian_nms again on the CPU (summary.txt and the counts
+          equal); fuse --artifact through a batch-1 fused export of the same
+          weights and settings (each kernel once a frame, as a custom op;
+          the images equal to the live run's with the FPS header masked).
+          Median per-frame host ms of detection, fusion, drawing and PNG
+          writes, and the detection's device-side ms (CUDA events)
 Then the script's total seconds, one {"kernels": [...]} line and, last, the
 {"ok": true, ...} line.
 
@@ -3374,6 +3392,246 @@ def phase_export(card, tmp_root):
             "serve_cli_track_associate": rec["serve_cli"]["track"]["track_associate_launches"]}
 
 
+VIZ_FRAMES = 4  # mini-KITTI test frames through the test and fuse CLIs
+VIZ_FUSE_MODES = {  # config -> (CLI flags, per-frame launches of each loop kernel)
+    "nms": (["--mode", "nms", "--side_by_side"], {"hard_nms_keep": 2, "greedy_match": 0, "soft_nms_gaussian": 0}),
+    "weighted": (["--mode", "weighted"], {"hard_nms_keep": 2, "greedy_match": 1, "soft_nms_gaussian": 0}),
+    "bayesian": (["--mode", "bayesian"], {"hard_nms_keep": 2, "greedy_match": 1, "soft_nms_gaussian": 0}),
+    "bayesian_gaussian": (["--mode", "bayesian", "--gaussian_nms"],
+                          {"hard_nms_keep": 1, "greedy_match": 1, "soft_nms_gaussian": 1}),
+}
+VIZ_LETTERBOX = 640  # the fuse CLI's --imgsz default
+
+
+def png_files(out):
+    """{relative path: decoded RGB array} of every PNG under `out`."""
+    import os
+
+    from sfa3d_tpu_torch.data.png import read_png_rgb
+
+    files = {}
+    for dirpath, _, names in os.walk(out):
+        for n in names:
+            if n.endswith(".png"):
+                path = os.path.join(dirpath, n)
+                files[os.path.relpath(path, out)] = read_png_rgb(path)
+    return files
+
+
+def integer_corners(rec):
+    """The integer pixels a test-CLI frame's drawing starts from: every BEV
+    box's corners and every drawn camera box's projected corners."""
+    from sfa3d_tpu_torch.geometry.transforms import lidar_to_camera_box
+    from sfa3d_tpu_torch.viz.draw import compute_box_3d, get_corners_bev, project_to_image
+
+    mask = rec["mask"]
+    out = [get_corners_bev(x, y, w, l, yaw).astype(int) for _, _, x, y, _, _, w, l, yaw in rec["boxes_bev"][mask]]
+    real = rec["boxes_real"][mask]
+    if len(real):
+        calib = rec["calib"]
+        cam = lidar_to_camera_box(real[:, 1:8], calib.V2C, calib.R0, calib.P2)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            out += [project_to_image(compute_box_3d(c[3:6], c[0:3], c[6]), calib.P2) for c in cam if c[2] >= 2.0]
+    return out
+
+
+def fps_header_mask(shape):
+    """The box of the fuse CLI's FPS header at (10, 25), scale 0.8, thickness
+    2, grown to the widest and deepest header it draws."""
+    from sfa3d_tpu_torch.viz import raster
+
+    sizes = [raster.get_text_size(f"{mode} fusion  99999.9 FPS", raster.FONT_HERSHEY_SIMPLEX, 0.8, 2)
+             for mode in ("artifact", "bayesian", "weighted", "nms")]
+    w, h, base = (max(s[0][0] for s in sizes), max(s[0][1] for s in sizes), max(s[1] for s in sizes))
+    mask = np.zeros(shape[:2], bool)
+    mask[max(25 - h - 3, 0):25 + base + 3, 0:10 + w + 3] = True
+    return mask
+
+
+class DetectEvents:
+    """CUDA events around each call of the CLIs' detect_frames and YOLO
+    detector, so a run's per-frame detection ms are device-side spans."""
+
+    def __init__(self):
+        import sfa3d_tpu_torch.pipeline as pipeline
+        from sfa3d_tpu_torch.models.yolov8 import YOLOv8Detector
+
+        self.pairs = []
+        self._pipeline, self._yolo_cls = pipeline, YOLOv8Detector
+        self._detect, self._yolo_call = pipeline.detect_frames, YOLOv8Detector.__call__
+
+    def _timed(self, fn):
+        def call(*args, **kwargs):
+            if kwargs.get("device") is not None and torch.device(kwargs["device"]).type != "cuda":
+                return fn(*args, **kwargs)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        return call
+
+    def __enter__(self):
+        self.pairs = []
+        self._pipeline.detect_frames = self._timed(self._detect)
+        yolo_call = self._timed(self._yolo_call)
+        self._yolo_cls.__call__ = lambda det, *a, **k: yolo_call(det, *a, **k)
+        return self
+
+    def __exit__(self, *exc):
+        self._pipeline.detect_frames = self._detect
+        self._yolo_cls.__call__ = self._yolo_call
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+def viz_times(records, device_ms=None, per_frame=1):
+    """Median per-frame host ms of each stage of a CLI run (the first frame,
+    which pays the warm-up, left out), with the device-side detection ms."""
+    rows = records[1:] or records
+    out = {k: statistics.median(r[k] for r in rows) for k in ("detect_ms", "fuse_ms", "draw_ms", "write_ms")
+           if k in rows[0]}
+    if device_ms:
+        frames = [sum(device_ms[i:i + per_frame]) for i in range(0, len(device_ms), per_frame)]
+        out["detect_device_ms"] = statistics.median(frames[1:] or frames)
+    return out
+
+
+def phase_viz_cli(card, tmp_root):
+    """The test and fuse CLIs over a 4-frame mini-KITTI, in process through
+    their mains: `test --save_test_output` on the card and on the CPU (the
+    same files, one raster launch a frame on the card and none on the CPU,
+    the raw BEV dumps equal, the composites equal on every frame whose
+    integer box corners are equal, and at least one such frame); `fuse` on
+    the card in the nms, weighted,
+    bayesian and bayesian --gaussian_nms modes (--side_by_side in the first)
+    with each kernel's launches a frame checked; bayesian --gaussian_nms
+    again on the CPU (summary.txt and the per-frame counts equal); `fuse
+    --artifact` through a batch-1 fused export of the same weights and
+    settings (each kernel once a frame as a custom op, the images equal to
+    the live run's with the FPS header masked). Per-frame host ms of each
+    stage and the device-side detection ms are printed."""
+    import contextlib
+    import io
+    import os
+
+    from sfa3d_tpu_torch.cli import fuse as fuse_cli
+    from sfa3d_tpu_torch.cli import test as test_cli
+    from sfa3d_tpu_torch.data.synthetic import write_mini_kitti
+    from sfa3d_tpu_torch.models.yolov8 import load_yolo_checkpoint, save_ultralytics_checkpoint
+    from sfa3d_tpu_torch.runtime.export import export_fused, save_exported
+
+    root = f"{tmp_root}/viz_cli"
+    kitti = write_mini_kitti(f"{root}/kitti", n_frames=VIZ_FRAMES, seed=SEED, splits=("test",))
+    det = Detector(device="cpu", seed=SEED)
+    bump_heatmap_bias(det.model)
+    test_pth = f"{root}/kfpn_test.pth"
+    torch.save(det.model.state_dict(), test_pth)
+    frame0 = png_files(f"{kitti}/testing/image_2")["000000.png"]
+    fd = FusedDetector(device="cpu", seed=SEED, imgsz=VIZ_LETTERBOX)
+    bump_fused_biases(fd, yolo_gate_bias(fd.yolo, frame0, VIZ_LETTERBOX))
+    fuse_pth, yolo_pt = f"{root}/kfpn_fuse.pth", f"{root}/yolo.pt"
+    torch.save(fd.kfpn.state_dict(), fuse_pth)
+    save_ultralytics_checkpoint(fd.yolo, yolo_pt)
+    kernels = [bev_raster_reduce, fusion_loops.hard_nms_keep, fusion_loops.greedy_match,
+               fusion_loops.soft_nms_gaussian]
+    rec = {"phase": "viz_cli", "card": card["nvidia_smi"], "frames": VIZ_FRAMES}
+
+    def run(main, argv):
+        """main(argv) quietly -> (records, launches of each kernel)."""
+        for fn in kernels:
+            fn.launches = 0  # count this run's launches only
+        with contextlib.redirect_stdout(io.StringIO()):
+            records = main(argv)
+        torch.cuda.synchronize()
+        return records, {fn.__name__: fn.launches for fn in kernels}
+
+    # --- test: the card and the CPU ---
+    base = ["--dataset_dir", kitti, "--pretrained_path", test_pth, "--save_test_output"]
+    with DetectEvents() as events:
+        card_recs, card_launches = run(test_cli.main, base + ["--output_dir", f"{root}/test_card"])
+    test_device_ms = events.ms()
+    cpu_recs, cpu_launches = run(test_cli.main, base + ["--output_dir", f"{root}/test_cpu", "--platform", "cpu"])
+    card_files, cpu_files = png_files(f"{root}/test_card"), png_files(f"{root}/test_cpu")
+    same_corners = [i for i in range(VIZ_FRAMES)
+                    if len(a := integer_corners(card_recs[i])) == len(b := integer_corners(cpu_recs[i]))
+                    and all(np.array_equal(x, y) for x, y in zip(a, b))]
+    raw_equal = all(np.array_equal(card_files[k], cpu_files[k]) for k in card_files if k.endswith("_raw_bev.png"))
+    composites_equal = [i for i in same_corners
+                        if np.array_equal(card_files[f"{i:06d}.png"], cpu_files[f"{i:06d}.png"])]
+    rec["test"] = {"files": len(card_files), "launches_card": card_launches, "launches_cpu": cpu_launches,
+                   "detections_card": [r["n_dets"] for r in card_recs],
+                   "detections_cpu": [r["n_dets"] for r in cpu_recs], "raw_bev_equal": raw_equal,
+                   "frames_with_equal_corners": len(same_corners),
+                   "composites_equal_of_those": len(composites_equal),
+                   "card_ms": viz_times(card_recs, test_device_ms), "cpu_ms": viz_times(cpu_recs)}
+    print(f"viz_cli: test composites equal card vs CPU on {len(composites_equal)} of {len(same_corners)} frames "
+          f"with equal integer corners ({VIZ_FRAMES} frames)", flush=True)
+    if (sorted(card_files) != sorted(cpu_files) or len(card_files) != VIZ_FRAMES * 8
+            or card_launches["bev_raster_reduce"] != VIZ_FRAMES or any(cpu_launches.values()) or not raw_equal
+            or not same_corners or len(composites_equal) != len(same_corners)
+            or not any(r["n_dets"] for r in card_recs)):
+        raise AssertionError(f"cli test card vs CPU: {rec['test']}")
+
+    # --- fuse: four configurations on the card ---
+    fuse_base = ["--dataset_dir", kitti, "--pretrained_path", fuse_pth, "--yolo_weights", yolo_pt]
+    rec["fuse"] = {}
+    fuse_launches = {}
+    for name, (flags, loops) in VIZ_FUSE_MODES.items():
+        with DetectEvents() as events:
+            recs, launches = run(fuse_cli.main, fuse_base + flags + ["--output_dir", f"{root}/fuse_{name}"])
+        want = {"bev_raster_reduce": VIZ_FRAMES, **{k: v * VIZ_FRAMES for k, v in loops.items()}}
+        rec["fuse"][name] = {"launches": launches, "expected": want,
+                             "before": [r["before"] for r in recs], "after": [r["after"] for r in recs],
+                             "ms": viz_times(recs, events.ms(), per_frame=2)}
+        fuse_launches[name] = launches
+        if launches != want or not any(r["after"] for r in recs):
+            raise AssertionError(f"cli fuse {name}: {rec['fuse'][name]}")
+    cpu_out = f"{root}/fuse_cpu"
+    cpu_recs, cpu_fuse_launches = run(fuse_cli.main, fuse_base + VIZ_FUSE_MODES["bayesian_gaussian"][0]
+                                      + ["--output_dir", cpu_out, "--platform", "cpu"])
+    card_summary = open(f"{root}/fuse_bayesian_gaussian/summary.txt").read()
+    cpu_summary = open(f"{cpu_out}/summary.txt").read()
+    rec["fuse_cpu"] = {"launches": cpu_fuse_launches, "summary_equal": card_summary == cpu_summary,
+                       "before": [r["before"] for r in cpu_recs], "after": [r["after"] for r in cpu_recs],
+                       "ms": viz_times(cpu_recs)}
+    card_counts = (rec["fuse"]["bayesian_gaussian"]["before"], rec["fuse"]["bayesian_gaussian"]["after"])
+    if (card_summary != cpu_summary or card_counts != (rec["fuse_cpu"]["before"], rec["fuse_cpu"]["after"])
+            or any(cpu_fuse_launches.values())):
+        raise AssertionError(f"cli fuse bayesian --gaussian_nms card vs CPU: {rec['fuse_cpu']}, card {card_counts}")
+
+    # --- fuse --artifact: a batch-1 export of the same weights and settings ---
+    kfpn = create_model("fpn_resnet_18")
+    kfpn.load_state_dict(torch.load(fuse_pth, weights_only=True))
+    t0 = time.perf_counter()
+    exported, manifest = export_fused(
+        kfpn.to(DEVICE).eval(), load_yolo_checkpoint(yolo_pt).to(DEVICE).eval(), batch=1,
+        max_points=cnf.MAX_POINTS_FILTERED, img_hw=IMG_HW, letterbox=VIZ_LETTERBOX, K=50, max_yolo=64,
+        mode="bayesian", use_gaussian_nms=True, peak_thresh=0.2, sfa_conf_gate=0.3, yolo_conf=0.25,
+        confidence_threshold=0.25)
+    artifact = f"{root}/fused_b1.sfa3dt"
+    save_exported(artifact, exported, manifest)
+    export_s = time.perf_counter() - t0
+    art_recs, art_launches = run(fuse_cli.main, ["--dataset_dir", kitti, "--artifact", artifact,
+                                                 "--output_dir", f"{root}/fuse_artifact"])
+    live_files, art_files = png_files(f"{root}/fuse_bayesian_gaussian"), png_files(f"{root}/fuse_artifact")
+    unequal = [k for k in art_files
+               if not np.array_equal(*(f[k][~fps_header_mask(f[k].shape)] for f in (live_files, art_files)))]
+    want = {fn.__name__: VIZ_FRAMES for fn in kernels}
+    want["hard_nms_keep"] = VIZ_FRAMES  # the YOLO selection; the fused set takes soft-NMS
+    rec["fuse_artifact"] = {"launches": art_launches, "expected": want, "export_s": export_s,
+                            "images": len(art_files), "images_unequal": unequal,
+                            "after": [r["after"] for r in art_recs], "ms": viz_times(art_recs)}
+    if art_launches != want or unequal or len(art_files) != VIZ_FRAMES:
+        raise AssertionError(f"cli fuse --artifact: {rec['fuse_artifact']}")
+    emit(rec)
+    return {"test": card_launches, **{f"fuse_{k}": v for k, v in fuse_launches.items()},
+            "fuse_artifact": art_launches}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3399,6 +3657,7 @@ def main() -> int:
         serve_cli_raster_launches, serve_cli_assoc_launches = phase_serve_cli(card, tmp_root)
         argo_launches = phase_argoverse(card, tmp_root)
         export_launches = phase_export(card, tmp_root)
+        viz_launches = phase_viz_cli(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -3413,6 +3672,8 @@ def main() -> int:
     raster_rec["launches_by_path"]["export_detector"] = export_launches["detector"]
     raster_rec["launches_by_path"]["export_fused"] = export_launches["fused"]["bev_raster_reduce"]
     raster_rec["launches_by_path"]["serve_cli_artifact"] = export_launches["serve_cli"]
+    for path, launches in viz_launches.items():
+        raster_rec["launches_by_path"][f"viz_cli_{path}"] = launches["bev_raster_reduce"]
     raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
     nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
     nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
@@ -3421,6 +3682,9 @@ def main() -> int:
     for rec in loop_recs:
         rec.setdefault("launches_by_path", {"fused_serve": fused[rec["name"]]})
         rec["launches_by_path"]["export_fused"] = export_launches["fused"][rec["name"]]
+        for path, launches in viz_launches.items():
+            if path != "test":
+                rec["launches_by_path"][f"viz_cli_{path}"] = launches[rec["name"]]
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     track_rec["launches"] = serve_cli_assoc_launches

@@ -1,7 +1,7 @@
 """Subcommand dispatcher of the port: python -m sfa3d_tpu_torch.cli <command> [args...].
 
-It lists the commands the port has; the JAX package's `test`, `demo`,
-`track`, `fuse`, `slam` and `stereo-calib` are not ported yet."""
+It lists the commands the port has; the JAX package's `demo`, `track`,
+`slam` and `stereo-calib` are not ported yet."""
 
 import importlib
 import sys
@@ -13,6 +13,8 @@ COMMANDS = {
     "serve": ("sfa3d_tpu_torch.cli.serve", "batched JSON detection server (stdio/TCP)"),
     "export": ("sfa3d_tpu_torch.cli.export", "AOT torch.export artifact (weights baked in)"),
     "argoverse-test": ("sfa3d_tpu_torch.cli.argoverse_test", "Argoverse pipeline runner"),
+    "test": ("sfa3d_tpu_torch.cli.test", "inference + BEV/camera composites on the test split"),
+    "fuse": ("sfa3d_tpu_torch.cli.fuse", "camera-LiDAR fusion (nms / weighted / bayesian)"),
 }
 
 

@@ -10,7 +10,7 @@ sampling and augmentation), one accumulated train step per batch
 at each checkpoint, through `cli/eval.py`), console + file logging, TensorBoard when a
 writer is importable, resume (`--resume_path`, `--auto_resume`) and
 weights-only loading (`--pretrained_path`), and the learning-rate curve as
-a PNG when matplotlib is importable. It runs on cuda (raising without a
+a PNG (drawn with `viz/raster.py`). It runs on cuda (raising without a
 GPU) unless `--platform cpu` is given. Flags whose work is not ported raise
 NotImplementedError (`config/train.py::refuse_unported`).
 """
@@ -189,24 +189,47 @@ def validate(val_loader, state, eval_step) -> float:
 
 
 def plot_lr_schedule(lr_sched, num_epochs, steps_per_epoch, logs_dir, lr_type):
-    """The learning rate of every epoch as logs_dir/LR_{lr_type}.png; skipped
-    without matplotlib."""
-    try:
-        import matplotlib
+    """The learning rate of every epoch as logs_dir/LR_{lr_type}.png: a line
+    with a dot per epoch inside a framed plot with a grid and labelled axes,
+    1280 x 960 px, drawn with `viz/raster.py`."""
+    from sfa3d_tpu_torch.data.png import write_png_rgb
+    from sfa3d_tpu_torch.viz import raster
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-    except ImportError:
-        return
     ys = np.asarray([lr_sched(e * steps_per_epoch) for e in range(num_epochs)], np.float64)
-    plt.figure()
-    plt.plot(ys, ".-", label="LR")
-    plt.xlabel("epoch")
-    plt.ylabel("LR")
-    plt.grid()
-    plt.tight_layout()
-    plt.savefig(os.path.join(logs_dir, f"LR_{lr_type}.png"), dpi=200)
-    plt.close()
+    img = np.full((960, 1280, 3), 255, np.uint8)
+    x0, y0, x1, y1 = 150, 40, 1240, 860
+    lo, hi = float(ys.min()), float(ys.max())
+    span = hi - lo or max(abs(hi), 1e-12)
+    lo, hi = lo - 0.05 * span, hi + 0.05 * span
+    font, grey, black, blue = raster.FONT_HERSHEY_SIMPLEX, (220, 220, 220), (0, 0, 0), (180, 119, 31)
+
+    def px(e, y):
+        u = x0 + (x1 - x0) * (e / max(num_epochs - 1, 1))
+        return int(round(u)), int(round(y1 - (y1 - y0) * (y - lo) / (hi - lo)))
+
+    for k in range(6):
+        v = lo + (hi - lo) * k / 5
+        _, yy = px(0, v)
+        raster.line(img, (x0, yy), (x1, yy), grey, 1)
+        label = f"{v:.2e}"
+        (w, h), _ = raster.get_text_size(label, font, 0.5, 1)
+        raster.put_text(img, label, (x0 - 10 - w, yy + h // 2), font, 0.5, black, 1)
+    for k in range(6):
+        e = (num_epochs - 1) * k / 5
+        xx, _ = px(e, lo)
+        raster.line(img, (xx, y0), (xx, y1), grey, 1)
+        label = f"{e:g}"
+        (w, _), _ = raster.get_text_size(label, font, 0.5, 1)
+        raster.put_text(img, label, (xx - w // 2, y1 + 25), font, 0.5, black, 1)
+    points = np.asarray([px(e, y) for e, y in enumerate(ys)], np.int32)
+    raster.polylines(img, [points.reshape(-1, 1, 2)], False, blue, 2)
+    for u, v in points:
+        raster.rectangle(img, (int(u) - 2, int(v) - 2), (int(u) + 2, int(v) + 2), blue, 2)
+    raster.rectangle(img, (x0, y0), (x1, y1), black, 1)
+    raster.put_text(img, "epoch", ((x0 + x1) // 2 - 30, y1 + 70), font, 0.8, black, 1)
+    raster.put_text(img, "LR", (20, (y0 + y1) // 2), font, 0.8, black, 1)
+    raster.put_text(img, "LR", (x1 - 60, y0 + 30), font, 0.8, blue, 1)
+    write_png_rgb(os.path.join(logs_dir, f"LR_{lr_type}.png"), img[:, :, ::-1])
 
 
 if __name__ == "__main__":

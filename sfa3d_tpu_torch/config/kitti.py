@@ -1,8 +1,8 @@
 """KITTI constants used by the serving and training paths.
 
 The port's own copy of the values in `sfa3d_tpu/config/kitti.py` (class maps,
-front BEV boundary, raster size, point budgets, the dataset-average
-calibration); the port imports nothing of the JAX package.
+drawing colours, front BEV boundary, raster size, point budgets, the
+dataset-average calibration); the port imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -26,6 +26,18 @@ CLASS_NAME_TO_ID = {
 ID_TO_CLASS_NAME = {0: "Pedestrian", 1: "Car", 2: "Cyclist"}
 
 NUM_CLASSES = 3
+
+# BGR drawing colours per class (the viz modules cycle through them).
+colors = [
+    [0, 255, 255],
+    [0, 0, 255],
+    [255, 0, 0],
+    [255, 120, 0],
+    [255, 120, 120],
+    [0, 120, 0],
+    [120, 255, 255],
+    [120, 0, 255],
+]
 
 # Front BEV detection range in the velodyne frame (meters).
 boundary = {

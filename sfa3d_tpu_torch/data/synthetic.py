@@ -24,28 +24,7 @@ import numpy as np
 
 from sfa3d_tpu_torch.config import kitti as cnf
 from sfa3d_tpu_torch.geometry.transforms import lidar_to_camera_box
-
-
-def _roty(angle: float) -> np.ndarray:
-    c, s = np.cos(angle), np.sin(angle)
-    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
-
-
-def compute_box_3d(dim, location, ry) -> np.ndarray:
-    """Camera-frame 8 corners of a box whose origin is its bottom centre."""
-    h, w, l = dim
-    x = [l / 2, l / 2, -l / 2, -l / 2, l / 2, l / 2, -l / 2, -l / 2]
-    y = [0, 0, 0, 0, -h, -h, -h, -h]
-    z = [w / 2, -w / 2, -w / 2, w / 2, w / 2, -w / 2, -w / 2, w / 2]
-    corners = _roty(ry) @ np.array([x, y, z], dtype=np.float32)
-    return (corners + np.asarray(location, np.float32).reshape(3, 1)).T
-
-
-def project_to_image(pts_3d: np.ndarray, P: np.ndarray) -> np.ndarray:
-    """(N, 3) camera points -> (N, 2) int32 pixels through a 3x4 P."""
-    homo = np.concatenate([pts_3d, np.ones((len(pts_3d), 1), np.float32)], axis=1)
-    uv = (np.asarray(P) @ homo.T).T
-    return (uv[:, :2] / uv[:, 2:]).astype(np.int32)
+from sfa3d_tpu_torch.viz.draw import compute_box_3d, project_to_image
 
 
 def _box_surface_points(rng, h, w, l, x, y, z, yaw, m):

@@ -7,7 +7,10 @@ projection on the device (tensors) and the synthetic dataset on the host
 numpy functions below on the host: `inverse_rigid_trans`,
 `camera_to_lidar_points`, `camera_to_lidar_box`, `center_to_corner_box3d`,
 `corner_to_center_box3d`, `point_transform` and `box_transform`, each the
-JAX package's numpy route written out op for op.
+JAX package's numpy route written out op for op. `project_to_image` and
+`compute_box_3d_camera` (numpy or tensors) are the JAX module's camera
+projection helpers; the drawing modules keep their own int32 projection
+(`viz/draw.py`), as the JAX package's do.
 
 Conventions (KITTI): velodyne x forward, y left, z up, yaw `rz` about +z;
 camera-rect x right, y down, z forward, yaw `ry` about +y; rz = -ry - pi/2.
@@ -164,3 +167,34 @@ def box_transform(boxes: np.ndarray, tx, ty, tz, r=0.0) -> np.ndarray:
     flat = point_transform(corners.reshape(-1, 3), tx, ty, tz, rz=r)
     out = corner_to_center_box3d(flat.reshape(corners.shape))
     return np.concatenate([out[..., :3], boxes[..., 3:6], out[..., 6:7]], axis=-1)
+
+
+def project_to_image(pts_3d, P):
+    """(N, 3) camera-rect points -> (N, 2) float pixels through the 3 x 4
+    P: [p, 1] @ P.T, then x / z and y / z. A numpy array gives a numpy
+    array; a tensor a tensor."""
+    if isinstance(pts_3d, np.ndarray):
+        p = _homogeneous(pts_3d) @ np.asarray(P).T
+        return p[..., :2] / p[..., 2:3]
+    P = torch.as_tensor(P, dtype=pts_3d.dtype, device=pts_3d.device)
+    p = torch.cat([pts_3d, torch.ones_like(pts_3d[..., :1])], dim=-1) @ P.T
+    return p[..., :2] / p[..., 2:3]
+
+
+def compute_box_3d_camera(box, P=None):
+    """Camera-frame 8 corners of (..., 7) boxes (x, y, z, h, w, l, ry),
+    origin at the bottom centre, y down: (..., 8, 3) points, and (..., 8, 2)
+    pixels when P is given. numpy in, numpy out; tensors likewise."""
+    xp = np if isinstance(box, np.ndarray) else torch
+    x, y, z, h, w, l, ry = [box[..., i] for i in range(7)]
+    c, s = xp.cos(ry), xp.sin(ry)
+    x_c = xp.stack([l / 2, l / 2, -l / 2, -l / 2, l / 2, l / 2, -l / 2, -l / 2], -1)
+    y_c = xp.stack([xp.zeros_like(h)] * 4 + [-h] * 4, -1)
+    z_c = xp.stack([w / 2, -w / 2, -w / 2, w / 2, w / 2, -w / 2, -w / 2, w / 2], -1)
+    cx = c[..., None] * x_c + s[..., None] * z_c + x[..., None]
+    cy = y_c + y[..., None]
+    cz = -s[..., None] * x_c + c[..., None] * z_c + z[..., None]
+    corners = xp.stack([cx, cy, cz], -1)
+    if P is None:
+        return corners
+    return corners, project_to_image(corners, P)

@@ -45,6 +45,19 @@ SCALES = {
 }
 STEM_WIDTH_TO_SCALE = {16: "n", 32: "s", 48: "m", 64: "l", 80: "x"}
 
+# the 80 COCO class names, in class-id order (the fuse CLI's labels)
+COCO_NAMES = (
+    "person bicycle car motorcycle airplane bus train truck boat traffic_light "
+    "fire_hydrant stop_sign parking_meter bench bird cat dog horse sheep cow "
+    "elephant bear zebra giraffe backpack umbrella handbag tie suitcase frisbee "
+    "skis snowboard sports_ball kite baseball_bat baseball_glove skateboard "
+    "surfboard tennis_racket bottle wine_glass cup fork knife spoon bowl banana "
+    "apple sandwich orange broccoli carrot hot_dog pizza donut cake chair couch "
+    "potted_plant bed dining_table toilet tv laptop mouse remote keyboard "
+    "cell_phone microwave oven toaster sink refrigerator book clock vase "
+    "scissors teddy_bear hair_drier toothbrush"
+).split()
+
 REG_MAX = 16
 STRIDES = (8, 16, 32)
 BN_EPS = 1e-3  # flax BatchNorm epsilon of the JAX model

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports with JAX, the JAX package, cv2,
-PIL and ultralytics absent, its sources import none of them, and its entry
-points never fall back to the CPU on their own."""
+PIL, matplotlib and ultralytics absent, its sources import none of them,
+and its entry points never fall back to the CPU on their own."""
 
 import pkgutil
 import re
@@ -15,7 +15,8 @@ import sfa3d_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "sfa3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu|cv2|PIL|ultralytics)\b", re.MULTILINE)
+FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu|cv2|PIL|matplotlib|ultralytics)\b",
+                              re.MULTILINE)
 
 
 def _port_modules():
@@ -35,18 +36,19 @@ def test_port_imports_without_jax():
                  "cli.eval", "tracking.tracker", "tracking.metrics", "ops.track_associate",
                  "runtime.tracking_service", "cli.serve", "models.centernet_deconv", "config.argoverse",
                  "geometry.se3", "geometry.argoverse_calib", "data.argoverse", "cli.argoverse_test",
-                 "runtime.export", "cli.export", "cli.__main__"):
+                 "runtime.export", "cli.export", "cli.__main__", "viz.raster", "viz.hershey", "viz.draw",
+                 "viz.bev_projection", "cli.test", "cli.fuse"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
-        "for banned in ('jax', 'sfa3d_tpu', 'cv2', 'PIL', 'ultralytics'):\n"
+        "for banned in ('jax', 'sfa3d_tpu', 'cv2', 'PIL', 'matplotlib', 'ultralytics'):\n"
         "    sys.modules[banned] = None\n"
         "import importlib\n"
         f"for name in {modules!r} + ['sfa3d_tpu_torch', 'chip_smoke']:\n"
         "    importlib.import_module(name)\n"
         "import sfa3d_tpu_torch.fusion as f\n"
         "assert f.build_fused_pipeline and f.hard_nms and f.fuse_frame\n"
-        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.', 'cv2.', 'PIL.'))]\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.', 'cv2.', 'PIL.', 'matplotlib.'))]\n"
         "print('ok')\n"
     )
     res = subprocess.run(
