@@ -1,7 +1,7 @@
 """Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths,
 its KFPN and YOLOv8 training paths, its evaluation, the serve CLI with
-per-stream tracking and the test and fuse CLIs on one NVIDIA GPU and check
-them.
+per-stream tracking, the test and fuse CLIs and the raw-drive demo and
+track CLIs on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -120,7 +120,10 @@ Phases, each printing one JSON line:
           next_id equal, boxes / velocities / scores within 1e-3, CLEAR-MOT
           counts equal (MOTP within 1e-3), one track_associate launch a
           frame, the candidate rows of each frame's association; ms per
-          tracker_step
+          tracker_step. Then a seeded 1,000-frame stream with births and
+          deaths on both, measured, not held to a limit: the largest box
+          difference, the frame where it is reached, the first frame whose
+          ids or flags differ
   serve_cli  python -m sfa3d_tpu_torch.cli.serve --track over stdio, in
           this process, KFPN-18 at 608 x 608 (random weights, heatmap and
           dim biases raised), 2 streams x 8 ordered frames, a track_reset
@@ -152,7 +155,9 @@ Phases, each printing one JSON line:
           intensity bit-exact, density within 1e-4 of 255); the
           argoverse_test CLI over 16 sweeps on the card and with --platform
           cpu (every frame answered, detections within 1e-3, one raster
-          launch a sweep, ms a sweep); the training path at the CLI's
+          launch a sweep, ms a sweep; the camera composites equal card vs
+          CPU, the first sweep's _rgb.jpg and _bev.jpg the JPEGs of the
+          arrays written, decoded and timed); the training path at the CLI's
           defaults (608 crop, batch 16, effective batch 64, bfloat16): 3
           timed steps through create_train_loader / make_train_step (finite
           losses, one raster launch per collated batch, CUDA-event ms,
@@ -178,7 +183,7 @@ Phases, each printing one JSON line:
           ms, ms a batch of the artifact and of the live detector in turns;
           the host enqueue ms of every kernel entry through its custom op
           and past the dispatcher (the raster also as a bare C call)
-  viz_cli  the test and fuse CLIs (numpy drawing, PNG files) over a
+  viz_cli  the test and fuse CLIs (numpy drawing, JPEG files) over a
           4-frame mini-KITTI of the port's writer, in process: test
           --save_test_output on the card and with --platform cpu (the same
           8 files a frame, one bev_raster_reduce launch a frame on the card
@@ -193,8 +198,26 @@ Phases, each printing one JSON line:
           equal); fuse --artifact through a batch-1 fused export of the same
           weights and settings (each kernel once a frame, as a custom op;
           the images equal to the live run's with the FPS header masked).
-          Median per-frame host ms of detection, fusion, drawing and PNG
-          writes, and the detection's device-side ms (CUDA events)
+          Median per-frame host ms of detection, fusion, drawing and JPEG
+          writes, and the detection's device-side ms (CUDA events); the
+          images compared are the arrays handed to the writer, whose files
+          hold their JPEG bytes
+  drive_cli  the raw-drive CLIs over an 8-frame write_mini_drive(motion=
+          True) of the port's writer, in process: demo, demo --two_sides and
+          track on the card and with --platform cpu (bev_raster_reduce 1 or
+          2 launches a frame and track_associate 1 a frame on the card, none
+          on the CPU; detection counts per window equal; track ids,
+          confirmed and alive equal, live boxes within 1e-3, the summary
+          line equal); every AVI read back through read_avi_frames and the
+          decoder (frame count and size, each frame the JPEG bytes of its
+          composite, the decoded frame's max error and PSNR against the
+          composite, at least 30 dB); test --output_format video
+          --enable_kfpn_viz over 2 mini-KITTI frames on the card (one raster
+          launch a frame, the AVI, 25 feature dumps a frame); the JPEG round
+          trip of a seeded image against the digest its CPU test pins;
+          per-frame host ms of detection, tracking, drawing, JPEG encode and
+          AVI write; encode and decode ms of a 375 x 1242 and a 1200 x 1920
+          frame
 Then the script's total seconds, one {"kernels": [...]} line and, last, the
 {"ok": true, ...} line.
 
@@ -2204,6 +2227,7 @@ TRACK_K, TRACK_T = 50, 64  # the serve CLI's K detections and the tracker's max_
 TRACK_IOU_MIN = 0.01  # the serve CLI's --track_iou_min default
 TRACK_FRAMES, TRACK_OBJECTS = 30, 20  # the track phase's seeded moving scene
 TRACK_TOL = 1e-3  # track boxes, velocities, scores card vs CPU (m, rad, m/frame): cuBLAS / cuSOLVER vs MKL / LAPACK rounding
+LONG_STREAM_FRAMES, LONG_STREAM_OBJECTS = 1000, 30  # the track phase's long stream with births and deaths
 SERVE_STREAMS, SERVE_FRAMES = 2, 8  # the serve_cli phase: ordered frames per stream
 DIM_BIAS = (1.5, 1.6, 3.9)  # m added to the KFPN's dim biases: car-sized boxes (random weights give millimetres)
 ASSOC_KERNEL = r"track_associate_(matrix|row)_kernel"  # either design of csrc/track_associate.cu
@@ -2454,11 +2478,72 @@ def make_track_scene(rng, n_frames=TRACK_FRAMES, n_objects=TRACK_OBJECTS, k=TRAC
     return boxes, scores, valid, gt
 
 
+def make_long_stream(rng, n_frames=LONG_STREAM_FRAMES, k=TRACK_K, max_objects=LONG_STREAM_OBJECTS):
+    """A seeded long stream with births and deaths: an object is born with
+    probability 0.3 a frame (up to `max_objects` at once) at a random place
+    with a random class, speed and heading, dies with probability 0.01 a
+    frame or when it leaves x in (0, 50), y in (-25, 25); detections are its
+    box jittered by 5 cm, 10% dropped, 0-4 false positives a frame, rows
+    shuffled. Returns (boxes (F, K, 8), scores (F, K), valid (F, K), births,
+    deaths)."""
+    dims = np.array([[1.76, 0.66, 0.84], [1.52, 1.63, 3.88], [1.73, 0.60, 1.76]])
+    boxes = np.zeros((n_frames, k, 8), np.float32)
+    scores = np.zeros((n_frames, k), np.float32)
+    live, births, deaths = [], 0, 0
+    for f in range(n_frames):
+        if len(live) < max_objects and rng.random() < 0.3:
+            heading = rng.uniform(-np.pi, np.pi)
+            speed = rng.uniform(0.05, 0.8)
+            live.append({"xy": np.array([rng.uniform(5, 45), rng.uniform(-20, 20)]), "cls": int(rng.integers(0, 3)),
+                         "v": speed * np.array([np.cos(heading), np.sin(heading)]), "yaw": heading})
+            births += 1
+        rows = []
+        for o in live:
+            if rng.random() < 0.1:
+                continue
+            rows.append([o["cls"], *(o["xy"] + rng.normal(0, 0.05, 2)), -1.0, *dims[o["cls"]], o["yaw"]])
+        for _ in range(rng.integers(0, 5)):
+            rows.append([rng.integers(0, 3), rng.uniform(0, 50), rng.uniform(-25, 25), -1.0, *dims[1],
+                         rng.uniform(-np.pi, np.pi)])
+        rows = rows[:k]
+        perm = rng.permutation(len(rows))
+        if rows:
+            boxes[f, :len(rows)] = np.asarray(rows, np.float32)[perm]
+            scores[f, :len(rows)] = rng.uniform(0.3, 1.0, len(rows))
+        kept = []
+        for o in live:
+            o["xy"] = o["xy"] + o["v"]
+            if rng.random() < 0.01 or not (0 < o["xy"][0] < 50 and -25 < o["xy"][1] < 25):
+                deaths += 1
+            else:
+                kept.append(o)
+        live = kept
+    valid = np.arange(k)[None] < (scores > 0).sum(1)[:, None]
+    return boxes, scores, valid, births, deaths
+
+
+def long_stream_drift(card_host, cpu_host):
+    """Per frame, the largest box difference between two tracker runs over
+    slots alive in both; the first frame whose ids, alive or confirmed
+    differ (None if none)."""
+    first_id_diff = None
+    for f in range(card_host["ids"].shape[0]):
+        if any(not np.array_equal(card_host[key][f], cpu_host[key][f]) for key in ("ids", "alive", "confirmed")):
+            first_id_diff = f
+            break
+    both = card_host["alive"] & cpu_host["alive"]
+    diff = np.where(both[..., None], np.abs(card_host["boxes"] - cpu_host["boxes"]), 0.0).max(axis=(1, 2))
+    return diff, first_id_diff
+
+
 def phase_track(card):
     """The seeded moving scene through track_sequence on the card and on the
     CPU: ids, alive, confirmed and next_id equal, boxes / velocities / scores
     within TRACK_TOL, CLEAR-MOT equal, one track_associate launch a frame;
-    ms per tracker_step on both."""
+    ms per tracker_step on both. Then a 1,000-frame seeded stream with births
+    and deaths on both, measured and printed, not held to a limit: the
+    largest box difference, the frame where it is reached, the first frame
+    whose ids or flags differ (none expected)."""
     from sfa3d_tpu_torch.ops.track_associate import track_associate, track_associate_candidate_rows
     from sfa3d_tpu_torch.tracking import clear_mot, track_sequence, tracker_output_to_frames
     from sfa3d_tpu_torch.tracking import tracker as tracker_module
@@ -2506,12 +2591,31 @@ def phase_track(card):
     card_ms = host_ms(lambda: run(DEVICE), reps=3, warmup=1) / TRACK_FRAMES
     cpu_ms = host_ms(lambda: run(torch.device("cpu")), reps=3, warmup=1) / TRACK_FRAMES
     profile = step_profile(boxes, scores, valid)
+
+    # the long stream: how far the card's Kalman rounding drifts from the CPU's
+    lb, ls, lv, births, deaths = make_long_stream(np.random.default_rng(SEED + 14))
+    t0 = time.perf_counter()
+    long_out = {dev: {k: v.cpu().numpy() for k, v in track_sequence(
+        lb, ls, lv, max_tracks=TRACK_T, iou_min=TRACK_IOU_MIN, max_age=3, min_hits=2, device=dev).items()}
+        for dev in (DEVICE, torch.device("cpu"))}
+    long_s = time.perf_counter() - t0
+    drift, first_id_diff = long_stream_drift(long_out[DEVICE], long_out[torch.device("cpu")])
+    worst = int(np.argmax(drift))
+    long_rec = {"frames": LONG_STREAM_FRAMES, "births": births, "deaths": deaths,
+                "tracks": int(long_out[torch.device("cpu")]["ids"].max()) + 1,
+                "box_max_abs_diff": float(drift[worst]), "at_frame": worst,
+                "box_max_abs_diff_by_100_frames": [float(drift[i:i + 100].max()) for i in range(0, len(drift), 100)],
+                "first_frame_ids_or_flags_differ": first_id_diff, "limit": TRACK_TOL, "seconds": long_s}
+    print(f"track: long stream of {LONG_STREAM_FRAMES} frames ({births} births, {deaths} deaths): box diff card vs "
+          f"CPU {drift[worst]:.3g} m at frame {worst}; ids and flags "
+          f"{'equal in every frame' if first_id_diff is None else f'differ from frame {first_id_diff}'}",
+          flush=True)
     emit({"phase": "track", "frames": TRACK_FRAMES, "objects": TRACK_OBJECTS, "K": TRACK_K, "max_tracks": TRACK_T,
           "next_id": next_id["cpu"], "track_associate_launches": launches, "candidate_rows_per_frame": candidate_rows,
           "float_max_abs_err": err, "tolerance": TRACK_TOL, "clear_mot": mot_card,
           "motp_abs_err": abs(mot_card["motp"] - mot_cpu["motp"]),
           "ms_per_step_card": card_ms, "ms_per_step_cpu": cpu_ms, "cpu_threads": torch.get_num_threads(),
-          "step_profile": profile, "card": card["nvidia_smi"]})
+          "step_profile": profile, "long_stream": long_rec, "card": card["nvidia_smi"]})
     return launches
 
 
@@ -3009,6 +3113,22 @@ def phase_argoverse(card, tmp_root):
         n_dets.append(len(ra))
     if det_err > NET_TOL or sum(n_dets) == 0:
         raise AssertionError(f"argoverse_test detections card vs CPU: max |diff| {det_err}, counts {n_dets}")
+    # the composite: each sweep's camera frame (GT boxes drawn) and raster as JPEG
+    from sfa3d_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    composite = {"camera_equal_card_cpu": all(np.array_equal(a["camera"], b["camera"]) for a, b in zip(res_g, res_c))}
+    for kind, key in (("rgb", "camera"), ("bev", "bev_u8")):
+        with open(os.path.join(tmp_root, "argo_out", f"{res_g[0]['timestamp']}_{kind}.jpg"), "rb") as f:
+            data = f.read()
+        t1 = time.perf_counter()
+        decoded = decode_jpeg(data)
+        diff = decoded.astype(np.float64) - res_g[0][key]
+        composite[kind] = {"shape": list(decoded.shape), "bytes": len(data), "file_is_its_jpeg": data == encode_jpeg(
+            res_g[0][key]), "decode_ms": (time.perf_counter() - t1) * 1e3, "max_abs_err": float(np.abs(diff).max()),
+            "psnr_db": float(10 * np.log10(255.0 ** 2 / max(np.mean(diff ** 2), 1e-12)))}
+    if (not composite["camera_equal_card_cpu"] or not all(composite[k]["file_is_its_jpeg"] for k in ("rgb", "bev"))
+            or composite["bev"]["shape"] != [ARGO_H, ARGO_W, 3]):
+        raise AssertionError(f"argoverse_test composite: {composite}")
     gpu_model = model.to(DEVICE).eval()
     with torch.inference_mode():
         crop = crop_raster(bev_ops.argoverse_points_to_bev_nchw(pts_c[:1].to(DEVICE), valid_c[:1].to(DEVICE)))
@@ -3069,7 +3189,8 @@ def phase_argoverse(card, tmp_root):
           "argoverse_test": {"sweeps": ARGO_TEST_FRAMES, "failed": 0, "raster_launches": test_launches,
                              "detections_per_sweep": n_dets, "detections_max_abs_err_vs_cpu": det_err,
                              "card_seconds": card_s, "card_ms_per_sweep": card_s / ARGO_TEST_FRAMES * 1e3,
-                             "cpu_seconds": cpu_s, "crop_detect_ms_one_sweep": detect_ms},
+                             "cpu_seconds": cpu_s, "crop_detect_ms_one_sweep": detect_ms,
+                             "composite": composite},
           "train": {"batch_size": rt.batch_size, "S": s, "frames_per_step": frames,
                     "compute_dtype": configs.model.compute_dtype, "steps": len(ms), "step_ms": ms,
                     "losses": losses, "raster_launches": train_launches, "loader_wait_ms": wait,
@@ -3403,19 +3524,39 @@ VIZ_FUSE_MODES = {  # config -> (CLI flags, per-frame launches of each loop kern
 VIZ_LETTERBOX = 640  # the fuse CLI's --imgsz default
 
 
-def png_files(out):
-    """{relative path: decoded RGB array} of every PNG under `out`."""
-    import os
+class WrittenImages:
+    """The arrays the CLIs hand to `data/png.py::write_image_bgr` while the
+    block runs, by path relative to `root`. On exit the first file written
+    is checked to hold its array's encoding (the JPEG encoder's bytes), so
+    comparisons of the arrays speak for the files."""
 
-    from sfa3d_tpu_torch.data.png import read_png_rgb
+    def __init__(self, root):
+        import sfa3d_tpu_torch.data.png as png
 
-    files = {}
-    for dirpath, _, names in os.walk(out):
-        for n in names:
-            if n.endswith(".png"):
-                path = os.path.join(dirpath, n)
-                files[os.path.relpath(path, out)] = read_png_rgb(path)
-    return files
+        self.root, self.png, self.images = root, png, {}
+        self._real = png.write_image_bgr
+
+    def _write(self, path, img):
+        import os
+
+        self.images[os.path.relpath(path, self.root)] = np.array(img)
+        self._real(path, img)
+
+    def __enter__(self):
+        self.png.write_image_bgr = self._write
+        return self.images
+
+    def __exit__(self, *exc):
+        import os
+
+        from sfa3d_tpu_torch.data.jpeg import encode_jpeg
+
+        self.png.write_image_bgr = self._real
+        if exc[0] is None and self.images:
+            name, img = next(iter(self.images.items()))
+            with open(os.path.join(self.root, name), "rb") as f:
+                if name.endswith(".jpg") and f.read() != encode_jpeg(img):
+                    raise AssertionError(f"{name} does not hold the JPEG of the array written")
 
 
 def integer_corners(rec):
@@ -3520,6 +3661,7 @@ def phase_viz_cli(card, tmp_root):
 
     from sfa3d_tpu_torch.cli import fuse as fuse_cli
     from sfa3d_tpu_torch.cli import test as test_cli
+    from sfa3d_tpu_torch.data.png import read_png_rgb
     from sfa3d_tpu_torch.data.synthetic import write_mini_kitti
     from sfa3d_tpu_torch.models.yolov8 import load_yolo_checkpoint, save_ultralytics_checkpoint
     from sfa3d_tpu_torch.runtime.export import export_fused, save_exported
@@ -3530,7 +3672,7 @@ def phase_viz_cli(card, tmp_root):
     bump_heatmap_bias(det.model)
     test_pth = f"{root}/kfpn_test.pth"
     torch.save(det.model.state_dict(), test_pth)
-    frame0 = png_files(f"{kitti}/testing/image_2")["000000.png"]
+    frame0 = read_png_rgb(f"{kitti}/testing/image_2/000000.png")
     fd = FusedDetector(device="cpu", seed=SEED, imgsz=VIZ_LETTERBOX)
     bump_fused_biases(fd, yolo_gate_bias(fd.yolo, frame0, VIZ_LETTERBOX))
     fuse_pth, yolo_pt = f"{root}/kfpn_fuse.pth", f"{root}/yolo.pt"
@@ -3541,27 +3683,28 @@ def phase_viz_cli(card, tmp_root):
     rec = {"phase": "viz_cli", "card": card["nvidia_smi"], "frames": VIZ_FRAMES}
 
     def run(main, argv):
-        """main(argv) quietly -> (records, launches of each kernel)."""
+        """main(argv) quietly -> (records, launches of each kernel, the
+        images written by path under --output_dir)."""
         for fn in kernels:
             fn.launches = 0  # count this run's launches only
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), WrittenImages(argv[argv.index("--output_dir") + 1]) as images:
             records = main(argv)
         torch.cuda.synchronize()
-        return records, {fn.__name__: fn.launches for fn in kernels}
+        return records, {fn.__name__: fn.launches for fn in kernels}, images
 
     # --- test: the card and the CPU ---
     base = ["--dataset_dir", kitti, "--pretrained_path", test_pth, "--save_test_output"]
     with DetectEvents() as events:
-        card_recs, card_launches = run(test_cli.main, base + ["--output_dir", f"{root}/test_card"])
+        card_recs, card_launches, card_files = run(test_cli.main, base + ["--output_dir", f"{root}/test_card"])
     test_device_ms = events.ms()
-    cpu_recs, cpu_launches = run(test_cli.main, base + ["--output_dir", f"{root}/test_cpu", "--platform", "cpu"])
-    card_files, cpu_files = png_files(f"{root}/test_card"), png_files(f"{root}/test_cpu")
+    cpu_recs, cpu_launches, cpu_files = run(test_cli.main,
+                                            base + ["--output_dir", f"{root}/test_cpu", "--platform", "cpu"])
     same_corners = [i for i in range(VIZ_FRAMES)
                     if len(a := integer_corners(card_recs[i])) == len(b := integer_corners(cpu_recs[i]))
                     and all(np.array_equal(x, y) for x, y in zip(a, b))]
-    raw_equal = all(np.array_equal(card_files[k], cpu_files[k]) for k in card_files if k.endswith("_raw_bev.png"))
+    raw_equal = all(np.array_equal(card_files[k], cpu_files[k]) for k in card_files if k.endswith("_raw_bev.jpg"))
     composites_equal = [i for i in same_corners
-                        if np.array_equal(card_files[f"{i:06d}.png"], cpu_files[f"{i:06d}.png"])]
+                        if np.array_equal(card_files[f"{i:06d}.jpg"], cpu_files[f"{i:06d}.jpg"])]
     rec["test"] = {"files": len(card_files), "launches_card": card_launches, "launches_cpu": cpu_launches,
                    "detections_card": [r["n_dets"] for r in card_recs],
                    "detections_cpu": [r["n_dets"] for r in cpu_recs], "raw_bev_equal": raw_equal,
@@ -3582,7 +3725,9 @@ def phase_viz_cli(card, tmp_root):
     fuse_launches = {}
     for name, (flags, loops) in VIZ_FUSE_MODES.items():
         with DetectEvents() as events:
-            recs, launches = run(fuse_cli.main, fuse_base + flags + ["--output_dir", f"{root}/fuse_{name}"])
+            recs, launches, images = run(fuse_cli.main, fuse_base + flags + ["--output_dir", f"{root}/fuse_{name}"])
+        if name == "bayesian_gaussian":
+            live_files = images
         want = {"bev_raster_reduce": VIZ_FRAMES, **{k: v * VIZ_FRAMES for k, v in loops.items()}}
         rec["fuse"][name] = {"launches": launches, "expected": want,
                              "before": [r["before"] for r in recs], "after": [r["after"] for r in recs],
@@ -3591,8 +3736,8 @@ def phase_viz_cli(card, tmp_root):
         if launches != want or not any(r["after"] for r in recs):
             raise AssertionError(f"cli fuse {name}: {rec['fuse'][name]}")
     cpu_out = f"{root}/fuse_cpu"
-    cpu_recs, cpu_fuse_launches = run(fuse_cli.main, fuse_base + VIZ_FUSE_MODES["bayesian_gaussian"][0]
-                                      + ["--output_dir", cpu_out, "--platform", "cpu"])
+    cpu_recs, cpu_fuse_launches, _ = run(fuse_cli.main, fuse_base + VIZ_FUSE_MODES["bayesian_gaussian"][0]
+                                         + ["--output_dir", cpu_out, "--platform", "cpu"])
     card_summary = open(f"{root}/fuse_bayesian_gaussian/summary.txt").read()
     cpu_summary = open(f"{cpu_out}/summary.txt").read()
     rec["fuse_cpu"] = {"launches": cpu_fuse_launches, "summary_equal": card_summary == cpu_summary,
@@ -3615,9 +3760,8 @@ def phase_viz_cli(card, tmp_root):
     artifact = f"{root}/fused_b1.sfa3dt"
     save_exported(artifact, exported, manifest)
     export_s = time.perf_counter() - t0
-    art_recs, art_launches = run(fuse_cli.main, ["--dataset_dir", kitti, "--artifact", artifact,
-                                                 "--output_dir", f"{root}/fuse_artifact"])
-    live_files, art_files = png_files(f"{root}/fuse_bayesian_gaussian"), png_files(f"{root}/fuse_artifact")
+    art_recs, art_launches, art_files = run(fuse_cli.main, ["--dataset_dir", kitti, "--artifact", artifact,
+                                                            "--output_dir", f"{root}/fuse_artifact"])
     unequal = [k for k in art_files
                if not np.array_equal(*(f[k][~fps_header_mask(f[k].shape)] for f in (live_files, art_files)))]
     want = {fn.__name__: VIZ_FRAMES for fn in kernels}
@@ -3630,6 +3774,186 @@ def phase_viz_cli(card, tmp_root):
     emit(rec)
     return {"test": card_launches, **{f"fuse_{k}": v for k, v in fuse_launches.items()},
             "fuse_artifact": art_launches}
+
+
+# ---------------------------------------------------------------------------
+# the raw-drive CLIs (demo, track) and test's video and KFPN dumps
+# ---------------------------------------------------------------------------
+
+DRIVE_FRAMES = 8  # write_mini_drive(motion=True) scans through demo and track
+DRIVE_VIDEO_FRAMES = 2  # mini-KITTI frames through test --output_format video --enable_kfpn_viz
+JPEG_PSNR_MIN = 30.0  # dB, a decoded AVI frame against the composite handed to the writer
+# sha256 of encode_jpeg(x) + decode_jpeg(encode_jpeg(x)).tobytes() for the
+# seeded image of round_trip_image(), as the CPU test pins it
+# (tests/test_torch_jpeg.py::ROUND_TRIP_SHA256)
+JPEG_ROUND_TRIP_SHA256 = "6c674e0284df81b0ed36acf9e3f2468a2174e2752cf42ad852487dad33aeaf68"
+
+
+def round_trip_image() -> np.ndarray:
+    """The seeded 96 x 160 BGR frame of tests/test_torch_jpeg.py."""
+    rng = np.random.default_rng(14)
+    y, x = np.mgrid[0:96, 0:160]
+    img = np.stack([x * 1.5, y * 2.5, (x + y) * 0.8], axis=-1) + rng.normal(0, 4, (96, 160, 3))
+    img[30:60, 50:90] = (20, 220, 250)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def avi_check(path, composites):
+    """Read an AVI back through read_avi_frames and the decoder: its frame
+    count and size, each stored frame the encoder's bytes of its composite,
+    and each decoded frame's error against the composite (max and PSNR)."""
+    from sfa3d_tpu_torch.data.avi import read_avi_frames, read_avi_info
+    from sfa3d_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    frames, info = read_avi_frames(path), read_avi_info(path)
+    h, w = composites[0].shape[:2]
+    if len(frames) != len(composites) or (info["width"], info["height"], info["frames"]) != (w, h, len(composites)):
+        raise AssertionError(f"{path}: {len(frames)} frames, {info}, for {len(composites)} composites of {w} x {h}")
+    errs, psnrs, decode_ms = [], [], []
+    for data, img in zip(frames, composites):
+        if data != encode_jpeg(img):
+            raise AssertionError(f"{path}: a frame is not the JPEG of its composite")
+        t0 = time.perf_counter()
+        got = decode_jpeg(data)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        diff = got.astype(np.float64) - img
+        errs.append(float(np.abs(diff).max()))
+        psnrs.append(float(10 * np.log10(255.0 ** 2 / max(np.mean(diff ** 2), 1e-12))))
+    if min(psnrs) < JPEG_PSNR_MIN:
+        raise AssertionError(f"{path}: decoded frames at {min(psnrs):.2f} dB PSNR, below {JPEG_PSNR_MIN}")
+    return {"frames": len(frames), "size": [w, h], "max_abs_err": max(errs), "psnr_db_min": min(psnrs),
+            "psnr_db": psnrs, "decode_ms_median": statistics.median(decode_ms)}
+
+
+def drive_times(records):
+    """Median per-frame host ms of each stage (the first frame left out)."""
+    rows = records[1:] or records
+    return {k: statistics.median(r[k] for r in rows)
+            for k in ("detect_ms", "track_ms", "draw_ms", "encode_ms", "write_ms") if k in rows[0]}
+
+
+def phase_drive_cli(card, tmp_root):
+    """The raw-drive CLIs in process through their mains, on an 8-frame
+    write_mini_drive(motion=True) of the port's writer and a KFPN-18 of
+    heatmap biases + 2.0: demo (front), demo --two_sides and track, each on
+    the card and with --platform cpu (raster launches 1 or 2 a frame and
+    track_associate 1 a frame on the card, none on the CPU; per frame the
+    detection counts equal and, for track, ids, confirmed and alive equal
+    and the boxes of live tracks within TRACK_TOL); every AVI read back
+    (frame count and size, each frame the JPEG of its composite, PSNR of the
+    decoded frame against the composite at least JPEG_PSNR_MIN); then test
+    --output_format video --enable_kfpn_viz over 2 mini-KITTI frames on the
+    card (one raster launch a frame, the AVI and 25 dumps a frame). Also the
+    JPEG round trip's digest against the CPU test's, and decode ms of a
+    375 x 1242 and a 1200 x 1920 frame. Returns the launches of each path."""
+    import contextlib
+    import hashlib
+    import io
+    import os
+
+    from sfa3d_tpu_torch.cli import demo as demo_cli
+    from sfa3d_tpu_torch.cli import test as test_cli
+    from sfa3d_tpu_torch.cli import track as track_cli
+    from sfa3d_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+    from sfa3d_tpu_torch.data.synthetic import render_camera_image, synthetic_scene, write_mini_drive, write_mini_kitti
+    from sfa3d_tpu_torch.ops.track_associate import track_associate
+    from sfa3d_tpu_torch.viz import raster
+
+    root = f"{tmp_root}/drive_cli"
+    drive = write_mini_drive(f"{root}/drive", n_frames=DRIVE_FRAMES, seed=SEED, motion=True)
+    model = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED))
+    bump_heatmap_bias(model)
+    pth = f"{root}/kfpn.pth"
+    torch.save(model.state_dict(), pth)
+    kernels = (bev_raster_reduce, track_associate)
+    rec = {"phase": "drive_cli", "card": card["nvidia_smi"], "frames": DRIVE_FRAMES}
+
+    def run(main, argv):
+        for fn in kernels:
+            fn.launches = 0  # this run's launches only
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            records = main(argv)
+        torch.cuda.synchronize()
+        return records, {fn.__name__: fn.launches for fn in kernels}, printed.getvalue()
+
+    launches_by_path = {}
+    paths = {"demo": (demo_cli.main, [], "demo_fpn_resnet_18.avi", 1),
+             "demo_two_sides": (demo_cli.main, ["--two_sides"], "demo_fpn_resnet_18.avi", 2),
+             "track": (track_cli.main, [], "track_fpn_resnet_18.avi", 1)}
+    for name, (main, flags, avi, windows) in paths.items():
+        argv = ["--drive_dir", drive, "--pretrained_path", pth] + flags
+        card_recs, card_launches, card_out = run(main, argv + ["--output_dir", f"{root}/{name}_card"])
+        cpu_recs, cpu_launches, cpu_out = run(main, argv + ["--output_dir", f"{root}/{name}_cpu", "--platform", "cpu"])
+        want = {"bev_raster_reduce": windows * DRIVE_FRAMES,
+                "track_associate": DRIVE_FRAMES if name == "track" else 0}
+        entry = {"launches_card": card_launches, "launches_expected": want, "launches_cpu": cpu_launches,
+                 "card_ms": drive_times(card_recs), "cpu_ms": drive_times(cpu_recs)}
+        if card_launches != want or any(cpu_launches.values()) or len(card_recs) != DRIVE_FRAMES:
+            raise AssertionError(f"{name}: launches {card_launches} on the card (want {want}), {cpu_launches} on "
+                                 f"the CPU, {len(card_recs)} frames")
+        if name == "track":
+            box_err = 0.0
+            for a, b in zip(card_recs, cpu_recs):
+                oa, ob = a["outputs"], b["outputs"]
+                if any(not np.array_equal(oa[k], ob[k]) for k in ("ids", "confirmed", "alive")):
+                    raise AssertionError(f"track frame {a['index']}: ids or flags differ card vs CPU")
+                if a["n_dets"] != b["n_dets"]:
+                    raise AssertionError(f"track frame {a['index']}: {a['n_dets']} vs {b['n_dets']} detections")
+                alive = ob["alive"]
+                if alive.any():
+                    box_err = max(box_err, float(np.abs(oa["boxes"][alive] - ob["boxes"][alive]).max()))
+            if box_err > TRACK_TOL or card_out.splitlines()[-1] != cpu_out.splitlines()[-1]:
+                raise AssertionError(f"track boxes card vs CPU {box_err}, or the summary lines differ")
+            entry.update({"box_max_abs_err": box_err, "summary": card_out.splitlines()[-1],
+                          "confirmed_last_frame": int(card_recs[-1]["outputs"]["confirmed"].sum())})
+        else:
+            counts = [[int(m.sum()) for m in r["mask"]] for r in card_recs]
+            if counts != [[int(m.sum()) for m in r["mask"]] for r in cpu_recs] or not any(map(any, counts)):
+                raise AssertionError(f"{name}: detection counts card {counts} vs CPU")
+            entry["detections_per_window"] = counts
+        entry["avi_card"] = avi_check(f"{root}/{name}_card/{avi}", [r["composite"] for r in card_recs])
+        entry["avi_cpu"] = avi_check(f"{root}/{name}_cpu/{avi}", [r["composite"] for r in cpu_recs])
+        rec[name] = entry
+        launches_by_path[name] = card_launches
+        print(f"drive_cli: {name} card ms a frame {entry['card_ms']}; AVI PSNR >= "
+              f"{entry['avi_card']['psnr_db_min']:.2f} dB", flush=True)
+
+    # test --output_format video --enable_kfpn_viz on the card
+    kitti = write_mini_kitti(f"{root}/kitti", n_frames=DRIVE_VIDEO_FRAMES, seed=SEED, splits=("test",))
+    out = f"{root}/test_video"
+    recs, launches, _ = run(test_cli.main, ["--dataset_dir", kitti, "--pretrained_path", pth, "--output_format",
+                                            "video", "--enable_kfpn_viz", "--output_dir", out])
+    dumps = sorted(d for d in os.listdir(out) if d.startswith("kfpn_viz_"))
+    rec["test_video"] = {"launches": launches, "dumps": {d: len(os.listdir(f"{out}/{d}")) for d in dumps},
+                         "avi": avi_check(f"{out}/fpn_resnet_18.avi", [r["composite"] for r in recs]),
+                         "card_ms": viz_times(recs)}
+    if (launches["bev_raster_reduce"] != DRIVE_VIDEO_FRAMES or len(dumps) != DRIVE_VIDEO_FRAMES
+            or any(n != 25 for n in rec["test_video"]["dumps"].values())):
+        raise AssertionError(f"test --output_format video --enable_kfpn_viz: {rec['test_video']}")
+    launches_by_path["test_video"] = launches
+
+    # the codec on this machine's numpy: the pinned round trip, and decode times
+    x = round_trip_image()
+    data = encode_jpeg(x)
+    digest = hashlib.sha256(data + decode_jpeg(data).tobytes()).hexdigest()
+    if digest != JPEG_ROUND_TRIP_SHA256:
+        raise AssertionError(f"JPEG round trip digest {digest} differs from the CPU test's {JPEG_ROUND_TRIP_SHA256}")
+    points, labels = synthetic_scene(seed=SEED)
+    kitti_frame = np.ascontiguousarray(render_camera_image(points, labels, np.asarray(cnf.P2)[:3])[:, :, ::-1])
+    argo_frame = raster.resize(kitti_frame, (1920, 1200))
+    codec = {"round_trip_sha256": digest}
+    for name, img in (("375x1242", kitti_frame), ("1200x1920", argo_frame)):
+        t0 = time.perf_counter()
+        data = encode_jpeg(img)
+        t1 = time.perf_counter()
+        decode_jpeg(data)
+        t2 = time.perf_counter()
+        codec[name] = {"encode_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3, "bytes": len(data)}
+    rec["codec"] = codec
+    print(f"drive_cli: JPEG decode {codec['375x1242']['decode_ms']:.1f} ms at 375 x 1242, "
+          f"{codec['1200x1920']['decode_ms']:.1f} ms at 1200 x 1920; round trip digest equal", flush=True)
+    emit(rec)
+    return launches_by_path
 
 
 def main() -> int:
@@ -3658,6 +3982,7 @@ def main() -> int:
         argo_launches = phase_argoverse(card, tmp_root)
         export_launches = phase_export(card, tmp_root)
         viz_launches = phase_viz_cli(card, tmp_root)
+        drive_launches = phase_drive_cli(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -3674,6 +3999,8 @@ def main() -> int:
     raster_rec["launches_by_path"]["serve_cli_artifact"] = export_launches["serve_cli"]
     for path, launches in viz_launches.items():
         raster_rec["launches_by_path"][f"viz_cli_{path}"] = launches["bev_raster_reduce"]
+    for path, launches in drive_launches.items():
+        raster_rec["launches_by_path"][path] = launches["bev_raster_reduce"]
     raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
     nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
     nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
@@ -3690,7 +4017,8 @@ def main() -> int:
     track_rec["launches"] = serve_cli_assoc_launches
     track_rec["path"] = "serve --track over stdio: 2 streams x 8 frames, one launch per tracked frame"
     track_rec["launches_by_path"] = {"serve_cli": serve_cli_assoc_launches, "track": track_launches,
-                                     "serve_cli_artifact_track": export_launches["serve_cli_track_associate"]}
+                                     "serve_cli_artifact_track": export_launches["serve_cli_track_associate"],
+                                     "track_cli": drive_launches["track"]["track_associate"]}
     argo_rec["launches"] = argo_launches["argoverse_test"]
     argo_rec["path"] = "argoverse_test CLI: 16 sweeps, one launch a sweep"
     argo_rec["launches_by_path"] = argo_launches

@@ -12,7 +12,7 @@ floor(advance * p) px), so a glyph's coverage depends on (character,
 weight, p) only, and cv2 blends it as (bg * (255 - a) + color * a + 127) //
 255, glyph after glyph. The table is read back from cv2 itself, for both
 weights and every printable ASCII character (32-126), at the pixel sizes of
-fontScale 0.5, 0.8 and 1.0 (p = 14, 22, 27), the sizes the CLIs draw: the
+fontScale 0.4, 0.5, 0.8 and 1.0 (p = 11, 14, 22, 27), the sizes the CLIs draw: the
 whole-pixel advance (the step of `cv2.getTextSize`'s width from two copies
 of the character to three), the descent (its baseline alone), and, from
 `cv2.putText` white on black, the glyph's block of coverage and its offset
@@ -27,7 +27,7 @@ middle pixels to the weight, and factors the 32 x 64 weights into the
 slope corrections and filter weights that `raster.py` holds.
 
 The check draws every character and 400 seeded strings with
-`sfa3d_tpu_torch.viz.raster` and with cv2 at scales 0.5, 0.8 and 1.0,
+`sfa3d_tpu_torch.viz.raster` and with cv2 at scales 0.4, 0.5, 0.8 and 1.0,
 thickness 1 and 2: `get_text_size` must equal `cv2.getTextSize` and
 `put_text` must equal `cv2.putText` pixel for pixel; other scales must be
 refused. It also requires the LINE_AA tables and the JET table to equal
@@ -51,8 +51,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 FONT = cv2.FONT_HERSHEY_SIMPLEX
-SIZES = (14, 22, 27)  # pixel sizes of fontScale 0.5, 0.8, 1.0
-SIZE_SCALES = {14: 0.5, 22: 0.8, 27: 1.0}
+SIZES = (11, 14, 22, 27)  # pixel sizes of fontScale 0.4, 0.5, 0.8, 1.0
+SIZE_SCALES = {11: 0.4, 14: 0.5, 22: 0.8, 27: 1.0}
 OUT = os.path.join(ROOT, "sfa3d_tpu_torch", "viz", "hershey.py")
 CHARS = [chr(c) for c in range(32, 127)]
 WEIGHTS = {"regular": 1, "bold": 2}  # the thickness that selects each
@@ -99,7 +99,8 @@ def write_module(height, table, blocks):
         "",
         "Generated by `scripts/torch_hershey_table.py` from cv2's own `getTextSize`",
         "and `putText`. Per weight and printable ASCII character (32-126) it",
-        "holds, at the pixel sizes 14, 22 and 27 (fontScale 0.5, 0.8 and 1.0),",
+        "holds, at the pixel sizes 11, 14, 22 and 27 (fontScale 0.4, 0.5, 0.8 and",
+        "1.0),",
         "the whole-pixel advance, the descent, and the glyph's coverage block:",
         "its top-left pixel relative to the pen's pixel on the baseline, its",
         "size, and its offset in the zlib-compressed coverage bytes. A character",
@@ -168,10 +169,11 @@ def check_text() -> int:
     importlib.reload(hershey)
     rng = np.random.default_rng(0)
     strings = CHARS + ["".join(rng.choice(CHARS, size=rng.integers(1, 24))) for _ in range(400)]
-    strings += ["Fused car 0.87", "bayesian fusion  12.3 FPS", "0.53", "github.com/maudzung", "Speed: 42.5 FPS"]
+    strings += ["Fused car 0.87", "bayesian fusion  12.3 FPS", "0.53", "github.com/maudzung", "Speed: 42.5 FPS",
+                "#12", "(7)"]
     failures = 0
     for text in strings:
-        for scale in (0.5, 0.8, 1.0):
+        for scale in (0.4, 0.5, 0.8, 1.0):
             for thick in (1, 2):
                 size = cv2.getTextSize(text, FONT, scale, thick)
                 mine = raster.get_text_size(text, raster.FONT_HERSHEY_SIMPLEX, scale, thick)
@@ -194,7 +196,7 @@ def check_text() -> int:
             failures += 1
         except ValueError:
             pass
-    print(f"text: checked {len(strings)} strings x 3 scales x 2 thicknesses: {failures} failures")
+    print(f"text: checked {len(strings)} strings x 4 scales x 2 thicknesses: {failures} failures")
     return failures
 
 

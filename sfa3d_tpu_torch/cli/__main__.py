@@ -1,7 +1,7 @@
 """Subcommand dispatcher of the port: python -m sfa3d_tpu_torch.cli <command> [args...].
 
-It lists the commands the port has; the JAX package's `demo`, `track`,
-`slam` and `stereo-calib` are not ported yet."""
+It lists the commands the port has; the JAX package's `slam` and
+`stereo-calib` are not ported yet."""
 
 import importlib
 import sys
@@ -15,6 +15,8 @@ COMMANDS = {
     "argoverse-test": ("sfa3d_tpu_torch.cli.argoverse_test", "Argoverse pipeline runner"),
     "test": ("sfa3d_tpu_torch.cli.test", "inference + BEV/camera composites on the test split"),
     "fuse": ("sfa3d_tpu_torch.cli.fuse", "camera-LiDAR fusion (nms / weighted / bayesian)"),
+    "demo": ("sfa3d_tpu_torch.cli.demo", "raw-drive video demo (front or --two_sides)"),
+    "track": ("sfa3d_tpu_torch.cli.track", "3D multi-object tracking video over a raw drive"),
 }
 
 

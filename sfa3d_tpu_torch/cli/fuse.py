@@ -10,16 +10,16 @@ one `bev_raster_reduce` launch), then `fusion/pipeline.py::fuse_frame` in
 the chosen mode (`greedy_match` in weighted and bayesian; `hard_nms_keep`
 after fusion, or `soft_nms_gaussian` with --gaussian_nms). The fused boxes
 are drawn on the frame, coloured by source and labelled, under a header
-with the mode and the frame rate, and written as `{id}_fused.png`;
-`--side_by_side` also writes `{id}_yolov8.png` and `{id}_sfa3d.png`. The
+with the mode and the frame rate, and written as `{id}_fused.jpg`;
+`--side_by_side` also writes `{id}_yolov8.jpg` and `{id}_sfa3d.jpg`. The
 run ends with `summary.txt`, the detection counts before and after fusion.
 `--artifact` runs each frame through a fused export (`cli export --fused`,
 `ArtifactFusedDetector`) instead, with the weights, the fusion settings and
-the camera geometry baked in. Images are written as PNG (the JAX runner
-writes JPEG). It runs on cuda (raising without a GPU) unless `--platform
-cpu` is given. `main` returns one record per frame: sample_id, the counts,
-and the host times (ms) of the detection, the fusion, the drawing and the
-PNG writes.
+the camera geometry baked in. Images are JPEG-encoded as the JAX runner's
+cv2.imwrite does (`data/jpeg.py`, byte for byte). It runs on cuda (raising
+without a GPU) unless `--platform cpu` is given. `main` returns one record
+per frame: sample_id, the counts, and the host times (ms) of the detection,
+the fusion, the drawing and the JPEG writes.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--num_samples", type=int, default=None)
     p.add_argument("--output_dir", type=str, default="./results/fusion")
     p.add_argument("--side_by_side", action="store_true",
-                   help="also save separate {id}_yolov8.png / {id}_sfa3d.png comparison images")
+                   help="also save separate {id}_yolov8.jpg / {id}_sfa3d.jpg comparison images")
     p.add_argument("--imgsz", type=int, default=640,
                    help="YOLOv8 letterbox size (stride-32 multiple; ultralytics imgsz)")
     p.add_argument("--artifact", type=str, default=None, metavar="PATH.sfa3dt",
@@ -109,7 +109,8 @@ def _run_artifact_frame(artifact_detector, sample, img_bgr, calib):
 
 def main(argv=None):
     from sfa3d_tpu_torch.cli.eval import load_model
-    from sfa3d_tpu_torch.cli.test import frame_calibration, read_frame_bgr, write_bgr
+    from sfa3d_tpu_torch.cli.test import frame_calibration, read_frame_bgr
+    from sfa3d_tpu_torch.data.png import write_image_bgr
     from sfa3d_tpu_torch.data.kitti import KittiDataset
     from sfa3d_tpu_torch.device import resolve_device
     from sfa3d_tpu_torch.fusion import pipeline as fusion_pipeline
@@ -179,7 +180,7 @@ def main(argv=None):
                 raster.rectangle(img_y, (x, y), (x + w, y + h), (0, 255, 255), 2)
                 raster.put_text(img_y, f"{score:.2f}", (x, max(0, y - 4)),
                                 raster.FONT_HERSHEY_SIMPLEX, 0.5, (0, 255, 255), 1)
-            images[f"{sample.sample_id:06d}_yolov8.png"] = img_y
+            images[f"{sample.sample_id:06d}_yolov8.jpg"] = img_y
 
             img_s = img.copy()
             s2d, sval = project_boxes_to_image(
@@ -190,7 +191,7 @@ def main(argv=None):
             for (x, y, w, h), ok in zip(s2d.cpu().numpy().astype(int), sval.cpu().numpy()):
                 if ok:
                     raster.rectangle(img_s, (x, y), (x + w, y + h), (255, 0, 0), 2)
-            images[f"{sample.sample_id:06d}_sfa3d.png"] = img_s
+            images[f"{sample.sample_id:06d}_sfa3d.jpg"] = img_s
 
         for (x, y, w, h), score, cls, src in zip(
             result["boxes"], result["scores"], result["classes"], result["source"]
@@ -203,10 +204,10 @@ def main(argv=None):
         mode_label = "artifact" if artifact is not None else args.mode
         raster.put_text(img, f"{mode_label} fusion  {1.0 / max(dt, 1e-9):.1f} FPS",
                         (10, 25), raster.FONT_HERSHEY_SIMPLEX, 0.8, (255, 255, 255), 2)
-        images[f"{sample.sample_id:06d}_fused.png"] = img
+        images[f"{sample.sample_id:06d}_fused.jpg"] = img
         t_draw = time.perf_counter()
         for name, image in images.items():
-            write_bgr(os.path.join(args.output_dir, name), image)
+            write_image_bgr(os.path.join(args.output_dir, name), image)
         t_write = time.perf_counter()
         print(f"frame {sample.sample_id}: {counts_before[-1]} -> {counts_after[-1]} dets "
               f"({dt * 1000:.1f} ms)")

@@ -7,18 +7,20 @@ For each frame of the test split: the LiDAR detector (`pipeline.detect_frames`:
 one `bev_raster_reduce` launch, the KFPN, the decode), then on the host the
 rotated boxes drawn on the BEV image (turned 180 degrees), the 3D boxes
 projected and drawn on the camera frame, and the two stacked into one
-composite `{id}.png` under `--output_dir`. `--save_test_output` also writes
-`visualizations/{id}_raw_bev.png` and the raw and sigmoid centre heatmap of
-each class through the JET colour map (`{id}_{raw,sigmoid}_heatmap_cls{c}.png`),
-from the same forward. Images are drawn BGR as the JAX runner draws them
-and written as PNG (the JAX runner writes JPEG; the port has no JPEG
-encoder yet). `--output_format video` and `--enable_kfpn_viz` need the AVI
-writer and the KFPN feature dumps, which the port does not have yet, and
-`--show` a display and cv2: each exits with a message. It runs on cuda
-(raising without a GPU) unless `--platform cpu` is given. `main` returns
-one record per frame: sample_id, n_dets, the host times (ms) of the
-detection (results on the host), the drawing and the PNG writes, and the
-frame's boxes_bev, boxes_real, mask and calib.
+composite, written as `{id}.jpg` under `--output_dir` or, with
+`--output_format video`, as a frame of `{saved_fn}.avi` (MJPEG at 30 fps,
+`data/avi.py`). `--save_test_output` also writes
+`visualizations/{id}_raw_bev.jpg` and the raw and sigmoid centre heatmap of
+each class through the JET colour map (`{id}_{raw,sigmoid}_heatmap_cls{c}.jpg`),
+from the same forward. `--enable_kfpn_viz` runs `KFPN.forward_features` on
+the frame's raster and writes the feature dumps of `viz/kfpn_viz.py` into
+`kfpn_viz_{id}/`. Images are drawn BGR and JPEG-encoded as the JAX runner's
+cv2.imwrite does (`data/jpeg.py`, byte for byte). `--show` needs a display
+and cv2's windows: it exits with a message. It runs on cuda (raising
+without a GPU) unless `--platform cpu` is given. `main` returns one record
+per frame: sample_id, n_dets, the host times (ms) of the detection (results
+on the host), the drawing and the writes (JPEG or video), and the frame's
+boxes_bev, boxes_real, mask and calib.
 """
 
 from __future__ import annotations
@@ -54,25 +56,20 @@ def parse_args(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message for the options the port cannot serve yet."""
-    if args.output_format == "video":
-        raise SystemExit("--output_format video needs an AVI (MJPEG) writer, which the port does "
-                         "not have yet; drop it to write one PNG per frame")
-    if args.enable_kfpn_viz:
-        raise SystemExit("--enable_kfpn_viz needs the KFPN feature dumps (viz/kfpn_viz.py), which "
-                         "the port does not have yet")
+    """Exit with a message for the option the port does not serve."""
     if args.show:
         raise SystemExit("--show needs a display and cv2's windows; the port writes files only "
                          "(drop --show)")
 
 
 def read_frame_bgr(img_path: str, shape=(375, 1242)) -> np.ndarray:
-    """The camera frame as a BGR uint8 image (black when the file is absent)."""
-    from sfa3d_tpu_torch.data.png import read_png_rgb
+    """The camera frame (PNG or JPEG) as a BGR uint8 image (black when the
+    file is absent)."""
+    from sfa3d_tpu_torch.data.png import read_image_bgr
 
     if not os.path.isfile(img_path):
         return np.zeros(shape + (3,), np.uint8)
-    return np.ascontiguousarray(read_png_rgb(img_path)[:, :, ::-1])
+    return read_image_bgr(img_path)
 
 
 def frame_calibration(img_path: str):
@@ -82,28 +79,17 @@ def frame_calibration(img_path: str):
     return KittiCalibration(calib_path if os.path.isfile(calib_path) else None)
 
 
-def write_bgr(path: str, image_bgr: np.ndarray) -> None:
-    """Write a BGR image as PNG with the pixels a cv2.imwrite would store."""
-    from sfa3d_tpu_torch.data.png import write_png_rgb
-
-    write_png_rgb(path, np.ascontiguousarray(image_bgr[:, :, ::-1]))
-
-
 def main(argv=None):
     from sfa3d_tpu_torch.cli.eval import load_model
-    from sfa3d_tpu_torch.config import kitti as cnf
+    from sfa3d_tpu_torch.data.avi import AviMjpegWriter
     from sfa3d_tpu_torch.data.kitti import KittiDataset
+    from sfa3d_tpu_torch.data.png import write_image_bgr
     from sfa3d_tpu_torch.device import resolve_device
     from sfa3d_tpu_torch.geometry.transforms import lidar_to_camera_box
     from sfa3d_tpu_torch.models import clamped_sigmoid
     from sfa3d_tpu_torch.pipeline import detect_frames
     from sfa3d_tpu_torch.viz import raster
-    from sfa3d_tpu_torch.viz.draw import (
-        bev_map_to_image,
-        draw_predictions_bev,
-        merge_rgb_to_bev,
-        show_rgb_image_with_boxes,
-    )
+    from sfa3d_tpu_torch.viz.draw import bev_panel_image, draw_bev_panel, merge_rgb_to_bev, show_rgb_image_with_boxes
 
     args = parse_args(argv)
     refuse_unported(args)
@@ -113,6 +99,7 @@ def main(argv=None):
     os.makedirs(args.output_dir, exist_ok=True)
 
     records = []
+    video_writer = None
     for idx in range(len(dataset)):
         sample = dataset[idx]
         t0 = time.perf_counter()
@@ -130,10 +117,7 @@ def main(argv=None):
         print(f"frame {sample.sample_id}: {mask.sum()} dets, "
               f"{dt * 1000:.1f} ms ({1.0 / max(dt, 1e-9):.1f} FPS)")
 
-        bev_img = bev_map_to_image(bev)
-        bev_img = raster.resize(bev_img, (cnf.BEV_WIDTH, cnf.BEV_HEIGHT))
-        draw_predictions_bev(bev_img, boxes_bev, mask)
-        bev_img = raster.rotate_180(bev_img)
+        bev_img = draw_bev_panel(bev, boxes_bev, mask)
 
         img_bgr = read_frame_bgr(sample.img_path)
         calib = frame_calibration(sample.img_path)
@@ -144,30 +128,43 @@ def main(argv=None):
         out_img = merge_rgb_to_bev(img_bgr, bev_img, output_width=args.output_width)
 
         images = {}
+        if args.enable_kfpn_viz:
+            from sfa3d_tpu_torch.viz.kfpn_viz import save_all
+
+            with torch.inference_mode():
+                _, viz = model.forward_features(out["bev"].permute(0, 3, 1, 2))
+            save_all(viz, os.path.join(args.output_dir, f"kfpn_viz_{sample.sample_id:06d}"))
         if args.save_test_output:
             # the raw BEV, then the raw and sigmoid centre heatmap of each
             # class, from the same forward as the detections
             viz_dir = os.path.join(args.output_dir, "visualizations")
             os.makedirs(viz_dir, exist_ok=True)
-            images[os.path.join(viz_dir, f"{sample.sample_id:06d}_raw_bev.png")] = raster.resize(
-                bev_map_to_image(bev), (cnf.BEV_WIDTH, cnf.BEV_HEIGHT))
+            images[os.path.join(viz_dir, f"{sample.sample_id:06d}_raw_bev.jpg")] = bev_panel_image(bev)
             heads = out["heads"]
             hm_raw = heads["hm_cen"].float()[0].cpu().numpy()  # (H, W, C)
             hm_sig = clamped_sigmoid(heads["hm_cen"])[0].cpu().numpy()
             for cls_id in range(hm_raw.shape[-1]):
                 for tag, hm in (("raw", hm_raw), ("sigmoid", hm_sig)):
                     heat = (np.clip(hm[..., cls_id], 0, 1) * 255).astype(np.uint8)
-                    name = f"{sample.sample_id:06d}_{tag}_heatmap_cls{cls_id}.png"
+                    name = f"{sample.sample_id:06d}_{tag}_heatmap_cls{cls_id}.jpg"
                     images[os.path.join(viz_dir, name)] = raster.apply_colormap_jet(heat)
-        images[os.path.join(args.output_dir, f"{sample.sample_id:06d}.png")] = out_img
+        if args.output_format == "image":
+            images[os.path.join(args.output_dir, f"{sample.sample_id:06d}.jpg")] = out_img
         t2 = time.perf_counter()
         for path, image in images.items():
-            write_bgr(path, image)
+            write_image_bgr(path, image)
+        if args.output_format == "video":
+            if video_writer is None:
+                video_writer = AviMjpegWriter(os.path.join(args.output_dir, f"{args.saved_fn}.avi"), 30,
+                                              (out_img.shape[1], out_img.shape[0]))
+            video_writer.write(out_img)
         t3 = time.perf_counter()
         records.append({"sample_id": sample.sample_id, "n_dets": int(mask.sum()),
                         "detect_ms": dt * 1000, "draw_ms": (t2 - t1) * 1000,
                         "write_ms": (t3 - t2) * 1000, "boxes_bev": boxes_bev, "boxes_real": boxes_real,
-                        "mask": mask, "calib": calib})
+                        "mask": mask, "calib": calib, "composite": out_img})
+    if video_writer is not None:
+        video_writer.release()
     return records
 
 

@@ -49,6 +49,17 @@ boundary = {
     "maxZ": 1.27,
 }
 
+# The rear detection window of `cli demo --two_sides`: the front one
+# mirrored in x (its raster is flipped on both axes before detection).
+boundary_back = {
+    "minX": -50.0,
+    "maxX": 0.0,
+    "minY": -25.0,
+    "maxY": 25.0,
+    "minZ": -2.73,
+    "maxZ": 1.27,
+}
+
 bound_size_x = boundary["maxX"] - boundary["minX"]
 bound_size_y = boundary["maxY"] - boundary["minY"]
 bound_size_z = boundary["maxZ"] - boundary["minZ"]

@@ -11,11 +11,10 @@ on the points' device: the 1000 x 1000 Argoverse raster (one launch of the
 hand-written tile kernel), its centre 608 x 608 crop and the training
 targets in that crop's frame.
 
-Camera frames are paired but never decoded here: nothing on the detection
-or training path reads their pixels. The port has no JPEG codec, so its
-fixture writer stores each frame as a PNG (`data/png.py`) of the seeded
-pixels that the JAX writer JPEG-encodes with cv2; the reader pairs `*.jpg`
-and `*.png` frames alike.
+Camera frames (`*.jpg`) are paired but never decoded here: nothing on the
+detection or training path reads their pixels; `cli/argoverse_test.py`
+decodes them for its composite. The fixture writer JPEG-encodes its seeded
+frames through `data/jpeg.py`, byte for byte the JAX writer's cv2 files.
 """
 
 from __future__ import annotations
@@ -129,10 +128,7 @@ class ArgoverseDataset:
             glob.glob(os.path.join(lidar_dir, "*.bin"))
             + glob.glob(os.path.join(lidar_dir, "*.ply"))
         )
-        self.image_files = sorted(
-            glob.glob(os.path.join(image_dir, "*.jpg"))
-            + glob.glob(os.path.join(image_dir, "*.png"))
-        )
+        self.image_files = sorted(glob.glob(os.path.join(image_dir, "*.jpg")))
         n = min(len(self.lidar_files), len(self.image_files)) or len(self.lidar_files)
         if num_samples is not None:
             n = min(n, num_samples)
@@ -250,11 +246,10 @@ class ArgoverseTrainLoader(KittiTrainLoader):
 def write_mini_argoverse(root: str, n_frames: int = 2, seed: int = 0) -> str:
     """Synthetic Argoverse-layout fixture: lidar .bin sweeps, camera frames,
     track_label.json, vehicle_calibration_info.json and per-frame poses, so
-    the whole Argoverse path runs without the dataset. The lidar, JSON and
-    pose files are byte for byte the JAX writer's; each camera frame is a
-    PNG of the seeded pixels (BGR, as the JAX writer hands them to cv2)
-    where the JAX writer stores a JPEG."""
-    from sfa3d_tpu_torch.data.png import write_png_rgb
+    the whole Argoverse path runs without the dataset. Every file is byte
+    for byte the JAX writer's: the camera frames are JPEGs of the seeded
+    pixels (BGR) through `data/jpeg.py`, cv2.imwrite's bytes."""
+    from sfa3d_tpu_torch.data.png import write_image_bgr
     from sfa3d_tpu_torch.data.synthetic import synthetic_scene
 
     os.makedirs(os.path.join(root, "samplefile", "lidar"), exist_ok=True)
@@ -270,7 +265,7 @@ def write_mini_argoverse(root: str, n_frames: int = 2, seed: int = 0) -> str:
         pts, labels = synthetic_scene(seed=seed + i)
         pts.tofile(os.path.join(root, "samplefile", "lidar", f"{ts}.bin"))
         img = (rng.uniform(0, 255, (120, 192, 3))).astype(np.uint8)
-        write_png_rgb(os.path.join(root, "samplefile", "ring_front_center", f"{ts}.png"), img[:, :, ::-1])
+        write_image_bgr(os.path.join(root, "samplefile", "ring_front_center", f"{ts}.jpg"), img)
         track_list = []
         for cls, x, y, z, h, w, l, yaw in labels:
             yaw = -yaw  # synthetic labels store -yaw (see synthetic_scene)

@@ -1,6 +1,6 @@
 """KITTI dataset reader on the host, the port of `sfa3d_tpu/data/kitti.py`
 (`KittiSample`, `Object3d`, `read_label`, `parse_labels_camera`,
-`KittiDataset`).
+`KittiDataset`, and `DemoKittiDataset` for raw drives).
 
 Samples come out as fixed-shape padded arrays (points + label slots +
 counts) so that batches go straight to the device raster and to
@@ -252,3 +252,32 @@ class KittiDataset:
         )
         sample.hflipped = hflipped
         return sample
+
+
+class DemoKittiDataset:
+    """A KITTI raw drive (image_02/data, velodyne_points/data, 10-digit ids)
+    for the `demo` and `track` CLIs. Item i is (points (max_points, 4),
+    valid (max_points,), camera image path): the scan filtered in numpy to
+    the union of the front and rear detection windows, then padded, so a
+    raw ~120k-point scan is never truncated by azimuth (the JAX package's
+    native reader is not ported)."""
+
+    def __init__(self, root_dir: str, max_points: int = cnf.MAX_POINTS):
+        self.image_dir = os.path.join(root_dir, "image_02", "data")
+        self.lidar_dir = os.path.join(root_dir, "velodyne_points", "data")
+        self.sample_ids = sorted(
+            int(os.path.splitext(f)[0]) for f in os.listdir(self.lidar_dir) if f.endswith(".bin")
+        )
+        self.max_points = max_points
+
+    def __len__(self):
+        return len(self.sample_ids)
+
+    def __getitem__(self, index: int):
+        sid = self.sample_ids[index]
+        lidar_path = os.path.join(self.lidar_dir, f"{sid:010d}.bin")
+        img_path = os.path.join(self.image_dir, f"{sid:010d}.png")
+        union = dict(cnf.boundary, minX=cnf.boundary_back["minX"])
+        points = np.fromfile(lidar_path, dtype=np.float32).reshape(-1, 4)
+        out, valid = filter_and_pad_points(points, max_points=self.max_points, boundary=union)
+        return out, valid, img_path

@@ -8,6 +8,11 @@ colour read gives after the BGR -> RGB swap: greyscale is repeated into
 the three channels and alpha is dropped. Anything else (palette, 16-bit,
 interlaced) raises ValueError. `write_png_rgb` writes an (H, W, 3) RGB
 uint8 array with the up filter on every row.
+
+`read_image_bgr` and `write_image_bgr` stand in for `cv2.imread` (colour)
+and `cv2.imwrite`: the reader sniffs the PNG or JPEG signature, the writer
+picks the codec by the file's extension (`.png`, or `.jpg` / `.jpeg`
+through `data/jpeg.py` at cv2's defaults). Both take and give BGR.
 """
 
 from __future__ import annotations
@@ -133,3 +138,33 @@ def write_png_rgb(path: str, image: np.ndarray) -> None:
     """Write an (H, W, 3) RGB uint8 image as a PNG file."""
     with open(path, "wb") as f:
         f.write(encode_png_rgb(image))
+
+
+def read_image_bgr(path: str) -> np.ndarray:
+    """A PNG or JPEG file (told apart by its first bytes) -> (H, W, 3) BGR
+    uint8, as cv2.imread gives it."""
+    from sfa3d_tpu_torch.data.jpeg import decode_jpeg
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == _SIGNATURE:
+        return np.ascontiguousarray(decode_png_rgb(data)[:, :, ::-1])
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+
+
+def write_image_bgr(path: str, image: np.ndarray) -> None:
+    """Write an (H, W, 3) BGR uint8 image as PNG or JPEG by the path's
+    extension, as cv2.imwrite(path, image) does at its defaults."""
+    from sfa3d_tpu_torch.data.jpeg import encode_jpeg
+
+    ext = path.rsplit(".", 1)[-1].lower() if "." in path else ""
+    if ext == "png":
+        data = encode_png_rgb(np.ascontiguousarray(np.asarray(image)[:, :, ::-1]))
+    elif ext in ("jpg", "jpeg"):
+        data = encode_jpeg(image)
+    else:
+        raise ValueError(f"{path}: no writer for the extension {ext!r} (png, jpg)")
+    with open(path, "wb") as f:
+        f.write(data)

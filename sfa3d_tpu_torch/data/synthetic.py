@@ -3,8 +3,10 @@ without cv2: ground plane + clutter + car-like box clusters with matching
 labels (`synthetic_scene`, the same numpy draws as the JAX package, so one
 seed gives the same scene byte for byte), camera frames rendered from the
 scene (`render_camera_image`), a mini KITTI layout on disk
-(`write_mini_kitti`, camera frames as PNG through `data/png.py`) and padded
-benchmark batches (`synthetic_batch_points`).
+(`write_mini_kitti`, camera frames as PNG through `data/png.py`), a drive
+of moving objects (`moving_scene_sequence`) and a raw-drive layout on disk
+(`write_mini_drive`), and padded benchmark batches
+(`synthetic_batch_points`).
 
 The renderer draws what the JAX one draws with cv2, in numpy: the
 velodyne-point dots are the same pixels, and each box's convex hull is
@@ -370,6 +372,111 @@ def write_mini_kitti(root: str, n_frames: int = 4, seed: int = 0,
         for split in splits:
             with open(os.path.join(root, "ImageSets", f"{split}.txt"), "w") as f:
                 f.write(ids)
+    return root
+
+
+def moving_scene_sequence(
+    n_frames: int,
+    seed: int = 0,
+    n_objects: int = 6,
+    points_per_object: int = 800,
+    n_ground: int = 20000,
+    n_clutter: int = 6000,
+):
+    """A drive in which the same objects move at constant per-object
+    velocities (0.05-1.2 m a frame by class, each box facing its motion)
+    while ground and clutter are drawn anew each frame: the input the 3D
+    tracker needs, where frame t + 1 is frame t moved. An object reverses
+    a velocity component when it would leave x in (6, 44) or y in (-19, 19),
+    so every id stays observable. The JAX package's rng call sequence, so
+    a seed gives the same frames in both packages.
+
+    Returns a list of (points (N, 4), labels (M, 8), gt_ids (M,)) per
+    frame; labels store -yaw, as `synthetic_scene`'s do."""
+    rng = np.random.default_rng(seed)
+    dims_by_class = {0: (1.76, 0.66, 0.84), 1: (1.52, 1.63, 3.88), 2: (1.73, 0.60, 1.76)}
+    # per-frame (0.1 s at KITTI's 10 Hz) speeds: walking pedestrians, urban
+    # cars, cyclists; a frame's displacement stays within the box footprint,
+    # which IoU-gated association needs
+    speed_by_class = {0: (0.05, 0.15), 1: (0.3, 1.2), 2: (0.2, 0.6)}
+    objs = []
+    for oid in range(n_objects):
+        cls = int(rng.integers(0, 3))
+        h, w, l = dims_by_class[cls]
+        h *= rng.uniform(0.9, 1.1)
+        w *= rng.uniform(0.9, 1.1)
+        l *= rng.uniform(0.9, 1.1)
+        x, y = rng.uniform(10, 40), rng.uniform(-15, 15)
+        theta = rng.uniform(-np.pi, np.pi)
+        speed = rng.uniform(*speed_by_class[cls])
+        objs.append(dict(oid=oid, cls=cls, h=h, w=w, l=l, x=x, y=y,
+                         vx=speed * np.cos(theta), vy=speed * np.sin(theta)))
+
+    frames = []
+    for _t in range(n_frames):
+        ground = np.empty((n_ground, 4), np.float32)
+        r = np.sqrt(rng.uniform(0.02, 1.0, n_ground))
+        th = rng.uniform(-np.pi, np.pi, n_ground)
+        ground[:, 0] = r * 60.0 * np.abs(np.cos(th))
+        ground[:, 1] = r * 40.0 * np.sin(th)
+        ground[:, 2] = rng.normal(-1.73, 0.05, n_ground)
+        ground[:, 3] = rng.uniform(0.0, 0.4, n_ground)
+        clutter = np.empty((n_clutter, 4), np.float32)
+        clutter[:, 0] = rng.uniform(-10, 60, n_clutter)
+        clutter[:, 1] = rng.uniform(-30, 30, n_clutter)
+        clutter[:, 2] = rng.uniform(-1.7, 1.2, n_clutter)
+        clutter[:, 3] = rng.uniform(0, 1, n_clutter)
+
+        pts, labels, ids = [ground, clutter], [], []
+        for o in objs:
+            yaw = np.arctan2(o["vy"], o["vx"])  # face the motion
+            pts.append(_box_surface_points(rng, o["h"], o["w"], o["l"], o["x"], o["y"], -1.73, yaw,
+                                           points_per_object))
+            labels.append([o["cls"], o["x"], o["y"], -1.73, o["h"], o["w"], o["l"], -yaw])
+            ids.append(o["oid"])
+            # advance, bouncing off the walls of the observable core
+            o["x"] += o["vx"]
+            o["y"] += o["vy"]
+            if not (6.0 < o["x"] < 44.0):
+                o["vx"] *= -1.0
+                o["x"] += 2.0 * o["vx"]
+            if not (-19.0 < o["y"] < 19.0):
+                o["vy"] *= -1.0
+                o["y"] += 2.0 * o["vy"]
+        points = np.concatenate(pts).astype(np.float32)
+        rng.shuffle(points, axis=0)
+        frames.append((points, np.asarray(labels, np.float32), np.asarray(ids, np.int32)))
+    return frames
+
+
+def write_mini_drive(root: str, n_frames: int = 2, seed: int = 0,
+                     cameras: bool = True, motion: bool = False) -> str:
+    """A tiny KITTI raw-drive layout (image_02/data + velodyne_points/data
+    with 10-digit ids) from synthetic scenes, for the `demo` and `track`
+    CLIs. Each scan is a front scene plus an x-mirrored rear scene, so
+    `demo --two_sides` finds content in both windows; `motion=True` takes
+    the front scenes from `moving_scene_sequence` (the same objects moving)
+    so that `track` has identities to follow. The scans are byte for byte
+    the JAX writer's; the camera frames are PNGs of `render_camera_image`."""
+    from sfa3d_tpu_torch.data.png import write_png_rgb
+
+    os.makedirs(os.path.join(root, "image_02", "data"), exist_ok=True)
+    os.makedirs(os.path.join(root, "velodyne_points", "data"), exist_ok=True)
+    P2 = np.asarray(cnf.P2[:3], np.float64).reshape(3, 4)
+    moving = moving_scene_sequence(n_frames, seed=seed) if motion else None
+    for i in range(n_frames):
+        if moving is not None:
+            front, labels, _ids = moving[i]
+        else:
+            front, labels = synthetic_scene(seed=seed + i)
+        back, _ = synthetic_scene(seed=seed + i + 500)
+        back = back.copy()
+        back[:, 0] *= -1.0  # mirrored into the rear window (boundary_back)
+        scan = np.concatenate([front, back]).astype(np.float32)
+        scan.tofile(os.path.join(root, "velodyne_points", "data", f"{i:010d}.bin"))
+        if cameras:
+            write_png_rgb(os.path.join(root, "image_02", "data", f"{i:010d}.png"),
+                          render_camera_image(front, labels, P2))
     return root
 
 

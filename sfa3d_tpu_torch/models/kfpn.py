@@ -152,12 +152,30 @@ class KFPN(ResNetBackbone):
         return self
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._heads(x, None)
+
+    def forward_features(self, x: torch.Tensor):
+        """The forward that also returns the introspection tensors of the
+        JAX package's `KFPN.__call__(..., capture_features=True)`: (heads,
+        viz) with viz = {"backbone": (out1, out2, out3, out4), "pyramid":
+        (up2, up3, up4), "fpn_outputs": {head: [3 levels after the nearest
+        upsample]}, "kfpn_weights": {head: softmax weights}}. The layout is
+        the port's: each feature map (B, C, H, W) where JAX's is
+        (B, H, W, C), and each weight tensor (B, C, H, W, L) where JAX's is
+        (B, H, W, C, L) (the levels stay the last axis). `forward`, the
+        program `torch.export` traces, is unchanged by it."""
+        viz = {"fpn_outputs": {}, "kfpn_weights": {}}
+        return self._heads(x, viz), viz
+
+    def _heads(self, x: torch.Tensor, viz: Optional[dict]) -> Dict[str, torch.Tensor]:
         out1, out2, out3, out4 = self.backbone_features(x)
         up1 = upsample2x_align_corners(out4)
         up2 = upsample2x_align_corners(self.conv_up_level1(torch.cat([up1, out3], 1)))
         up3 = upsample2x_align_corners(self.conv_up_level2(torch.cat([up2, out2], 1)))
         up4 = self.conv_up_level3(torch.cat([up3, out1], 1))
         levels = (up2, up3, up4)  # 1/8, 1/4, 1/4 resolution
+        if viz is not None:
+            viz["backbone"], viz["pyramid"] = (out1, out2, out3, out4), levels
 
         ret = {}
         for head in self.heads:
@@ -167,5 +185,7 @@ class KFPN(ResNetBackbone):
                 if o.shape[-2:] != up4.shape[-2:]:
                     o = upsample2x_nearest(o)
                 level_outs.append(o)
-            ret[head], _ = apply_kfpn(level_outs)
+            ret[head], weights = apply_kfpn(level_outs)
+            if viz is not None:
+                viz["fpn_outputs"][head], viz["kfpn_weights"][head] = level_outs, weights
         return ret

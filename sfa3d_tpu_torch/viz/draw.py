@@ -1,6 +1,7 @@
 """Drawing helpers of the port, the counterpart of `sfa3d_tpu/viz/draw.py`:
 the 3D cuboid projection and drawing, the RGB + BEV composite, the rotated
-BEV boxes, the credit overlay. Every cv2 call of the JAX module goes
+BEV boxes, the credit overlay, and the BEV panel the CLIs draw on
+(`bev_panel_image`, `draw_bev_panel`). Every cv2 call of the JAX module goes
 through `viz/raster.py` with the same arguments; images are uint8 (H, W, 3)
 BGR, drawn in place.
 """
@@ -129,3 +130,16 @@ def draw_predictions_bev(bev_img: np.ndarray, boxes_bev: np.ndarray, mask: np.nd
         cls, _score, x, y, _z, _h, w, l, yaw = row
         draw_rotated_box(bev_img, x, y, w, l, yaw, cnf.colors[int(cls) % len(cnf.colors)])
     return bev_img
+
+
+def bev_panel_image(bev_hwc: np.ndarray) -> np.ndarray:
+    """The raster as the BEV image the CLIs draw on, at the BEV size."""
+    return raster.resize(bev_map_to_image(bev_hwc), (cnf.BEV_WIDTH, cnf.BEV_HEIGHT))
+
+
+def draw_bev_panel(bev_hwc: np.ndarray, boxes_bev: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """The detections drawn on the BEV image, turned 180 degrees (the
+    `test` and `demo` CLIs' panel)."""
+    img = bev_panel_image(bev_hwc)
+    draw_predictions_bev(img, boxes_bev, mask)
+    return raster.rotate_180(img)

@@ -11,11 +11,13 @@ drawn in place.
   and filter tables and end-point correction, each pixel blended twice as
   cv2 5.x does) and, thicker, cv2's quad filled with anti-aliased edges and
   anti-aliased polygon caps (ellipse2Poly's vertices), pixel for pixel;
+- `arrowed_line`: cv2's arrowedLine, the shaft and two tip strokes at
+  +-45 degrees, each `tipLength` times the shaft's length, through `line`;
 - `polylines`, `rectangle`: cv2's PolyLine over `line`'s thick segments
   (closed polylines cap every vertex but the first segment's start);
 - `get_text_size` and `put_text` for FONT_HERSHEY_SIMPLEX, which cv2 5.x
   draws as an anti-aliased outline font: the metrics and the glyphs'
-  coverage at fontScale 0.5, 0.8 and 1.0 are the port's table in
+  coverage at fontScale 0.4, 0.5, 0.8 and 1.0 are the port's table in
   `viz/hershey.py` (equal to cv2's, pixel for pixel); other scales are
   refused;
 - `rotate_180`, `vconcat`, `resize` (`models/yolov8.py::_resize_uint8`,
@@ -527,6 +529,23 @@ def line(img: np.ndarray, pt1, pt2, color, thickness: int = 1, lineType: int = L
     return img
 
 
+def arrowed_line(img: np.ndarray, pt1, pt2, color, thickness: int = 1, line_type: int = LINE_8,
+                 tipLength: float = 0.1) -> np.ndarray:
+    """cv2.arrowedLine(img, pt1, pt2, color, thickness, line_type, 0,
+    tipLength): the line, then a stroke from each tip point to `pt2`, the
+    tip points `tipLength * |pt2 - pt1|` from `pt2` at the shaft's angle
+    +-45 degrees, rounded half to even (cvRound)."""
+    x1, y1 = _point(pt1)
+    x2, y2 = _point(pt2)
+    tip = math.hypot(x1 - x2, y1 - y2) * tipLength
+    line(img, (x1, y1), (x2, y2), color, thickness, line_type)
+    angle = math.atan2(y1 - y2, x1 - x2)
+    for turn in (math.pi / 4, -math.pi / 4):
+        p = (int(round(x2 + tip * math.cos(angle + turn))), int(round(y2 + tip * math.sin(angle + turn))))
+        line(img, p, (x2, y2), color, thickness, line_type)
+    return img
+
+
 def polylines(img: np.ndarray, pts, isClosed: bool, color, thickness: int = 1,
               lineType: int = LINE_8) -> np.ndarray:
     """cv2.polylines(img, [pts, ...], isClosed, color, thickness, lineType)."""
@@ -560,11 +579,11 @@ def _font():
 
 def _pixel_size(font_scale: float) -> int:
     """The font's pixel size at `font_scale`; only the sizes of fontScale
-    0.5, 0.8 and 1.0 are tabulated."""
+    0.4, 0.5, 0.8 and 1.0 are tabulated."""
     font = _font()
     size = _round(font.HEIGHT / 1000.0 * font_scale)
     if size not in font.SIZES:
-        raise ValueError(f"text is drawn at fontScale 0.5, 0.8 or 1.0 only, not {font_scale}")
+        raise ValueError(f"text is drawn at fontScale 0.4, 0.5, 0.8 or 1.0 only, not {font_scale}")
     return size
 
 

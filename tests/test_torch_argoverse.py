@@ -202,27 +202,21 @@ def test_dataset_samples_equal_jax(mini_argo, num_samples):
 
 
 def test_writer_files_equal_jax(tmp_path):
-    """The lidar sweeps, labels, poses and calibration are byte for byte the
-    JAX writer's; each camera frame is a PNG of the seeded pixels that the
-    JAX writer JPEG-encodes (BGR, as cv2 takes them), and the dataset pairs
-    it as JAX's pairs the JPEG."""
-    from sfa3d_tpu_torch.data.png import read_png_rgb
-
+    """Every file is byte for byte the JAX writer's: the lidar sweeps,
+    labels, poses and calibration, and the camera frames, JPEGs of the
+    seeded pixels (the port's encoder gives cv2.imwrite's bytes); the
+    dataset pairs them as JAX's does."""
     port = targo.write_mini_argoverse(str(tmp_path / "port"), n_frames=3, seed=9)
     ref = jargo.write_mini_argoverse(str(tmp_path / "jax"), n_frames=3, seed=9)
-    for sub in ("samplefile/lidar", "annotations", "log0/poses", "."):
+    for sub in ("samplefile/lidar", "samplefile/ring_front_center", "annotations", "log0/poses", "."):
         names = sorted(f for f in os.listdir(os.path.join(ref, sub)) if os.path.isfile(os.path.join(ref, sub, f)))
         assert names == sorted(f for f in os.listdir(os.path.join(port, sub))
                                if os.path.isfile(os.path.join(port, sub, f))) and names, sub
         _, mismatch, errors = filecmp.cmpfiles(os.path.join(port, sub), os.path.join(ref, sub), names, shallow=False)
         assert not mismatch and not errors, (sub, mismatch, errors)
-    rng = np.random.default_rng(9)
-    cam = os.path.join(port, "samplefile", "ring_front_center")
-    for name in sorted(os.listdir(cam)):
-        want_bgr = rng.uniform(0, 255, (120, 192, 3)).astype(np.uint8)
-        np.testing.assert_array_equal(read_png_rgb(os.path.join(cam, name))[:, :, ::-1], want_bgr)
     ds, jds = targo.ArgoverseDataset(port), jargo.ArgoverseDataset(ref)
-    assert len(ds) == len(jds) == 3 and ds.image_files[0].endswith(".png") and jds.image_files[0].endswith(".jpg")
+    assert len(ds) == len(jds) == 3 and ds.image_files[0].endswith(".jpg")
+    assert [os.path.basename(f) for f in ds.image_files] == [os.path.basename(f) for f in jds.image_files]
     for i in range(3):
         a, b = ds[i], jds[i]
         assert a.timestamp == b.timestamp and int(a.n_labels) == int(b.n_labels)

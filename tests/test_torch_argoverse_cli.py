@@ -1,8 +1,11 @@
 """The port's Argoverse entry points on the CPU: `python -m
 sfa3d_tpu_torch.cli.argoverse_test` against the JAX package's raster, crop
 and `detect_bev` on the same sweeps and weights (detections within 1e-3),
-and `python -m sfa3d_tpu_torch.cli.train --dataset argoverse` for two
-steps, whose checkpoint the runner loads.
+its images (the raster as JAX writes it, its density channel within one
+level, and the camera frame with the ground-truth boxes drawn as the JAX
+runner draws them with cv2, exactly; each file the JPEG bytes of its
+array), and `python -m sfa3d_tpu_torch.cli.train --dataset argoverse` for
+two steps, whose checkpoint the runner loads.
 
 Weights come from a JAX init bridged by `models/port.py::state_dict_from_jax`,
 with the heatmap biases raised by 2.0 so random weights give peaks. The
@@ -14,6 +17,7 @@ import os
 import re
 import shutil
 
+import cv2
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +32,6 @@ from sfa3d_tpu.ops.bev import argoverse_points_to_bev as jargoverse_points_to_be
 from sfa3d_tpu.pipeline import detect_bev as jdetect_bev
 from sfa3d_tpu.pipeline import init_detector as jinit_detector
 from sfa3d_tpu_torch.cli import argoverse_test
-from sfa3d_tpu_torch.data.png import read_png_rgb
 from sfa3d_tpu_torch.models import create_model
 from sfa3d_tpu_torch.models.port import state_dict_from_jax
 
@@ -102,12 +105,48 @@ def test_argoverse_test_cli_matches_jax(mini_argo, weights, tmp_path):
             else:
                 assert uv is None
 
-        png = read_png_rgb(os.path.join(out_dir, f"{sample.timestamp}_bev.png"))
-        want = np.asarray(bev).astype(np.uint8)[:, :, ::-1]  # the channels as B, G, R
-        assert png.shape == (1000, 1000, 3)
-        np.testing.assert_array_equal(png[..., :2], want[..., :2])
-        assert np.abs(png[..., 2].astype(int) - want[..., 2]).max() <= 1  # density: uint8 of a 1e-4 difference
+        bev_u8 = got["bev_u8"]
+        want = np.asarray(bev).astype(np.uint8)  # the JAX runner's imwrite array: [density, height, intensity]
+        assert bev_u8.shape == (1000, 1000, 3)
+        np.testing.assert_array_equal(bev_u8[..., 1:], want[..., 1:])
+        assert np.abs(bev_u8[..., 0].astype(int) - want[..., 0]).max() <= 1  # density: uint8 of a 1e-4 difference
+        with open(os.path.join(out_dir, f"{sample.timestamp}_bev.jpg"), "rb") as f:
+            assert f.read() == cv2.imencode(".jpg", bev_u8)[1].tobytes()
+
+        # the camera composite, drawn as the JAX runner draws it with cv2
+        cam = cv2.imread(sample.img_path)
+        for box in corners:
+            juv, jvalid = sample.calib.project_ego_to_image(box)
+            if jvalid.all():
+                pts = juv.astype(int)
+                for a, b in argoverse_test.BOX_EDGES:
+                    cv2.line(cam, tuple(pts[a]), tuple(pts[b]), (0, 255, 0), 2)
+        np.testing.assert_array_equal(got["camera"], cam)
+        with open(os.path.join(out_dir, f"{sample.timestamp}_rgb.jpg"), "rb") as f:
+            assert f.read() == cv2.imencode(".jpg", cam)[1].tobytes()
+
     assert n_dets > 0, "the weights gave no detection; the test would be vacuous"
+
+
+def test_ground_truth_drawing_equals_cv2(mini_argo):
+    """The fixture's 120 x 192 frames show none of the projected boxes, so
+    the drawing is held here on the full 1200 x 1920 frame the runner falls
+    back to: each fully projected box's 12 edges as cv2.line draws them."""
+    jds = JArgoverseDataset(mini_argo, mode="test")
+    drawn = 0
+    for idx in range(len(jds)):
+        sample = jds[idx]
+        gt_uv = argoverse_test.project_ground_truth(sample)
+        want = np.zeros((1200, 1920, 3), np.uint8)
+        for uv in gt_uv:
+            if uv is not None:
+                pts = uv.astype(int)
+                for a, b in argoverse_test.BOX_EDGES:
+                    cv2.line(want, tuple(pts[a]), tuple(pts[b]), (0, 255, 0), 2)
+        got = argoverse_test.draw_ground_truth(np.zeros((1200, 1920, 3), np.uint8), gt_uv)
+        np.testing.assert_array_equal(got, want)
+        drawn += int(got.any())
+    assert drawn > 0
 
 
 def test_argoverse_test_cli_counts_failed_frames(mini_argo, tmp_path):

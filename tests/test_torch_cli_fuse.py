@@ -7,7 +7,9 @@ from a JAX YOLOv8n init (`save_ultralytics_checkpoint`, DFL mass on bin 2),
 `--imgsz 64 --confidence_threshold 0.0 --peak_thresh 0.0` (YOLO boxes at
 confidence 0 exercise every label path). Each package's `fuse_frame` is
 wrapped to record its inputs and result; the JAX runner's images are
-captured where it hands them to `cv2.imwrite` (its files are lossy JPEG).
+captured where it hands them to `cv2.imwrite`, the port's where it hands
+them to `data/png.py::write_image_bgr` (each file is checked to be the
+JPEG bytes of its array, cv2.imencode's).
 
 Tolerances: the port's `fuse_frame` on JAX's inputs equals JAX's result
 (boxes, classes and sources exactly, scores within 1.2e-7, the soft-NMS IoU
@@ -26,8 +28,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-
-from sfa3d_tpu_torch.data.png import read_png_rgb
 
 SCORE_TOL = 1.2e-7
 CONFIGS = {
@@ -90,9 +90,28 @@ def _recording(module, calls):
     return real, fuse_frame
 
 
+@contextlib.contextmanager
 def port_images(out):
-    return {n.replace(".png", ""): read_png_rgb(os.path.join(out, n))[:, :, ::-1]
-            for n in sorted(os.listdir(out)) if n.endswith(".png")}
+    """The arrays the port hands to its image writer while the block runs,
+    by path relative to `out`; afterwards each file must be the JPEG bytes
+    of its array (cv2.imencode's)."""
+    import sfa3d_tpu_torch.data.png as tpng
+
+    images = {}
+    real = tpng.write_image_bgr
+
+    def write_image_bgr(path, img):
+        images[os.path.relpath(path, out)] = np.array(img)
+        real(path, img)
+
+    tpng.write_image_bgr = write_image_bgr
+    try:
+        yield images
+    finally:
+        tpng.write_image_bgr = real
+    for name, img in images.items():
+        with open(os.path.join(out, name), "rb") as f:
+            assert f.read() == cv2.imencode(".jpg", img)[1].tobytes(), name
 
 
 @pytest.fixture(scope="module")
@@ -113,18 +132,17 @@ def runs(setup):
         real_imwrite = cv2.imwrite
         jreal, jrec = _recording(jpipeline, jcalls)
         treal, trec = _recording(tpipeline, tcalls)
-        cv2.imwrite = lambda path, img: jimages.__setitem__(os.path.basename(path).replace(".jpg", ""),
-                                                            np.array(img)) or True
+        cv2.imwrite = lambda path, img: jimages.__setitem__(os.path.basename(path), np.array(img)) or True
         jpipeline.fuse_frame, tpipeline.fuse_frame = jrec, trec
         try:
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()), port_images(tout) as timages:
                 jfuse.main(base + flags + ["--output_dir", jout])
                 tfuse.main(base + flags + ["--output_dir", tout, "--platform", "cpu"])
         finally:
             cv2.imwrite = real_imwrite
             jpipeline.fuse_frame, tpipeline.fuse_frame = jreal, treal
         results[name] = {
-            "jax_calls": jcalls, "port_calls": tcalls, "jax_images": jimages, "port_images": port_images(tout),
+            "jax_calls": jcalls, "port_calls": tcalls, "jax_images": jimages, "port_images": timages,
             "jax_summary": open(os.path.join(jout, "summary.txt")).read(),
             "port_summary": open(os.path.join(tout, "summary.txt")).read(),
         }
@@ -185,7 +203,7 @@ def test_images_within_the_band(runs, config):
     for name, a in r["jax_images"].items():
         b = r["port_images"][name]
         assert a.shape == b.shape, name
-        keep = ~header_mask(a.shape) if name.endswith("_fused") else np.ones(a.shape[:2], bool)
+        keep = ~header_mask(a.shape) if name.endswith("_fused.jpg") else np.ones(a.shape[:2], bool)
         assert np.array_equal(a[keep], b[keep]), name
     if config == "nms":
-        assert {"000000_yolov8", "000000_sfa3d", "000000_fused"} <= set(r["port_images"])
+        assert {"000000_yolov8.jpg", "000000_sfa3d.jpg", "000000_fused.jpg"} <= set(r["port_images"])

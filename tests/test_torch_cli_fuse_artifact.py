@@ -67,13 +67,14 @@ def test_artifact_run_equals_the_live_run(setup):
     kitti, pth, pt, artifact, root = setup
     live, art = str(root / "live"), str(root / "artifact")
     with contextlib.redirect_stdout(io.StringIO()):
-        tfuse.main(["--dataset_dir", kitti, "--pretrained_path", pth, "--yolo_weights", pt, "--platform", "cpu",
-                    "--output_dir", live] + LIVE)
-        tfuse.main(["--dataset_dir", kitti, "--artifact", artifact, "--platform", "cpu", "--output_dir", art])
-    a, b = port_images(live), port_images(art)
-    assert sorted(a) == sorted(b) == ["000000_fused"]
-    keep = ~header_mask(a["000000_fused"].shape)
-    assert np.array_equal(a["000000_fused"][keep], b["000000_fused"][keep])
+        with port_images(live) as a:
+            tfuse.main(["--dataset_dir", kitti, "--pretrained_path", pth, "--yolo_weights", pt, "--platform", "cpu",
+                        "--output_dir", live] + LIVE)
+        with port_images(art) as b:
+            tfuse.main(["--dataset_dir", kitti, "--artifact", artifact, "--platform", "cpu", "--output_dir", art])
+    assert sorted(a) == sorted(b) == ["000000_fused.jpg"]
+    keep = ~header_mask(a["000000_fused.jpg"].shape)
+    assert np.array_equal(a["000000_fused.jpg"][keep], b["000000_fused.jpg"][keep])
     assert _summary_tail(os.path.join(live, "summary.txt")) == _summary_tail(os.path.join(art, "summary.txt"))
     assert open(os.path.join(art, "summary.txt")).read().startswith(f"mode: artifact ({artifact})\n")
     assert float(_summary_tail(os.path.join(art, "summary.txt"))[1].split(": ")[1]) > 0

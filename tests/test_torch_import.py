@@ -37,7 +37,8 @@ def test_port_imports_without_jax():
                  "runtime.tracking_service", "cli.serve", "models.centernet_deconv", "config.argoverse",
                  "geometry.se3", "geometry.argoverse_calib", "data.argoverse", "cli.argoverse_test",
                  "runtime.export", "cli.export", "cli.__main__", "viz.raster", "viz.hershey", "viz.draw",
-                 "viz.bev_projection", "cli.test", "cli.fuse"):
+                 "viz.bev_projection", "cli.test", "cli.fuse", "data.jpeg", "data.avi", "cli.demo", "cli.track",
+                 "viz.kfpn_viz"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

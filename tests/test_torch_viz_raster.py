@@ -1,9 +1,10 @@
 """The port's drawing primitives (`sfa3d_tpu_torch/viz/raster.py`) against
 cv2 on seeded inputs.
 
-Tolerances: none. Thin and thick LINE_8 and LINE_AA lines, closed
-polylines, rectangles, the convex fill, JET, rotate, vconcat, resize, the
-text sizes and the text pixels at fontScale 0.5, 0.8 and 1.0 are exact.
+Tolerances: none. Thin and thick LINE_8 and LINE_AA lines, arrowed lines,
+closed polylines, rectangles, the convex fill, JET, rotate, vconcat,
+resize, the text sizes and the text pixels at fontScale 0.4, 0.5, 0.8 and
+1.0 are exact.
 Other text scales are refused.
 
 `band` is the comparison the CLI tests use where two images may rightly
@@ -20,7 +21,8 @@ from sfa3d_tpu_torch.viz import raster
 
 H, W = 120, 160
 CLI_STRINGS = ["Fused car 0.87", "bayesian fusion  12.3 FPS", "0.53", "github.com/maudzung",
-               "Speed: 42.5 FPS", "YOLOv8 person 0.00", "SFA3D cls1 0.31", "artifact fusion  3.9 FPS"]
+               "Speed: 42.5 FPS", "YOLOv8 person 0.00", "SFA3D cls1 0.31", "artifact fusion  3.9 FPS",
+               "#12", "(7)", "backbone layer1 (16, 16, 64)"]
 
 
 def _grow(mask, radius):
@@ -145,6 +147,23 @@ def test_aa_lines_within_the_band(thickness):
         assert np.array_equal(a, b), (x1, y1, x2, y2)
 
 
+@pytest.mark.parametrize("thickness", [1, 2])
+@pytest.mark.parametrize("line_type", [cv2.LINE_8, cv2.LINE_AA])
+def test_arrowed_line_equals_cv2(thickness, line_type):
+    """cv2.arrowedLine at the track CLI's tipLength 0.3 and at 0.1 and 0.5,
+    shafts of every direction and length, some clipped."""
+    rng = np.random.default_rng(thickness * 10 + line_type)
+    for k in range(150):
+        p1 = tuple(int(v) for v in rng.integers(-30, 190, 2))
+        p2 = tuple(int(v) for v in rng.integers(-30, 190, 2))
+        tip = (0.3, 0.1, 0.5)[k % 3]
+        a = np.full((H, W, 3), (40, 30, 20), np.uint8)
+        b = a.copy()
+        cv2.arrowedLine(a, p1, p2, (10, 200, 255), thickness, line_type, 0, tip)
+        raster.arrowed_line(b, p1, p2, (10, 200, 255), thickness, line_type, tipLength=tip)
+        assert np.array_equal(a, b), (p1, p2, tip)
+
+
 def test_jet_rotate_vconcat_resize_equal_cv2():
     levels = np.arange(256, dtype=np.uint8).reshape(16, 16)
     assert np.array_equal(raster.apply_colormap_jet(levels), cv2.applyColorMap(levels, cv2.COLORMAP_JET))
@@ -164,7 +183,7 @@ def _strings(seed=0, n=200):
     return CLI_STRINGS + ["".join(rng.choice(chars, size=rng.integers(1, 24))) for _ in range(n)]
 
 
-@pytest.mark.parametrize("scale", [0.5, 0.8, 1.0])
+@pytest.mark.parametrize("scale", [0.4, 0.5, 0.8, 1.0])
 @pytest.mark.parametrize("thickness", [1, 2])
 def test_text_size_equals_cv2(scale, thickness):
     for text in _strings():
@@ -173,7 +192,7 @@ def test_text_size_equals_cv2(scale, thickness):
         assert (tuple(got[0]), got[1]) == (tuple(want[0]), want[1]), text
 
 
-@pytest.mark.parametrize("scale", [0.5, 0.8, 1.0])
+@pytest.mark.parametrize("scale", [0.4, 0.5, 0.8, 1.0])
 @pytest.mark.parametrize("thickness", [1, 2])
 def test_put_text_equals_cv2(scale, thickness):
     """Pixel for pixel at the CLIs' scales, any line type, over a coloured
