@@ -1,7 +1,8 @@
 """Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths,
 its KFPN and YOLOv8 training paths, its evaluation, the serve CLI with
-per-stream tracking, the test and fuse CLIs and the raw-drive demo and
-track CLIs on one NVIDIA GPU and check them.
+per-stream tracking, the test and fuse CLIs, the raw-drive demo and track
+CLIs, and the geometry and SLAM path (RANSAC, ORB, the slam and
+stereo-calib CLIs) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -218,6 +219,25 @@ Phases, each printing one JSON line:
           per-frame host ms of detection, tracking, drawing, JPEG encode and
           AVI write; encode and decode ms of a 375 x 1242 and a 1200 x 1920
           frame
+  slam    geometry and SLAM: ransac_pnp (128 hypotheses of 6, 64 slots) and
+          estimate_fundamental_ransac (256 of 8, 1024 slots) -> essential ->
+          recover_pose on the card and the CPU with the same minimal sets
+          (float64 within 1e-8; float32 F within 1e-3, the poses within
+          1e-4 / 1e-3 or twice both sides' float32 gap to the float64
+          solution where that is larger); the port's ORB on the port writer's 375 x 1242 stereo
+          pair card vs CPU (keypoints, descriptors and the matches equal)
+          and the calibration on the card within tests/test_slam.py's
+          bounds; cli stereo-calib --run_yolo over 2 pairs (calibrated 2/2,
+          hard_nms_keep once a pair); cli slam over 4 mini-KITTI frames in
+          each --calib_method and VISUAL_SLAM_SIM --use_pnp on the card and
+          with --platform cpu (the drift sources' calibrations and fused
+          counts equal, and the images equal on every frame whose fused
+          boxes are equal, at least one; --use_pnp's float32 poses within
+          twice both sides' gap to the float64 solution, its calibrations,
+          counts and differing pixels printed; each kernel's launches a
+          frame checked). Host ms of ORB per level, the
+          match, F-RANSAC, recover_pose, ransac_pnp, and a cli slam frame's
+          detection, calibration, fusion, drawing and JPEG write
 Then the script's total seconds, one {"kernels": [...]} line and, last, the
 {"ok": true, ...} line.
 
@@ -3956,6 +3976,305 @@ def phase_drive_cli(card, tmp_root):
     return launches_by_path
 
 
+# ---------------------------------------------------------------------------
+# geometry and SLAM: the RANSAC estimators, ORB and the matcher, and the
+# slam and stereo-calib CLIs
+# ---------------------------------------------------------------------------
+
+SLAM_FRAMES = 4  # mini-KITTI test frames through cli slam in each configuration
+SLAM_STEREO_PAIRS = 2  # training pairs through cli stereo-calib --run_yolo
+SLAM_CONFIGS = {  # config -> cli slam flags (the default bayesian fusion)
+    "KITTI_DATASET_CALIB": ["--calib_method", "KITTI_DATASET_CALIB"],
+    "VISUAL_SLAM_SIM": ["--calib_method", "VISUAL_SLAM_SIM"],
+    "LIDAR_SLAM_SIM": ["--calib_method", "LIDAR_SLAM_SIM"],
+    "VISUAL_INERTIAL_SLAM_SIM": ["--calib_method", "VISUAL_INERTIAL_SLAM_SIM"],
+    "VISUAL_SLAM_SIM_pnp": ["--calib_method", "VISUAL_SLAM_SIM", "--use_pnp"],
+}
+SLAM_FRAME_LAUNCHES = {"bev_raster_reduce": 1, "hard_nms_keep": 2, "greedy_match": 1, "soft_nms_gaussian": 0}
+SLAM_PAIR_LAUNCHES = {"bev_raster_reduce": 0, "hard_nms_keep": 1, "greedy_match": 0, "soft_nms_gaussian": 0}
+SLAM_F64_TOL = 1e-8  # float64 estimators card vs CPU: cuSOLVER vs LAPACK round-off
+# float32 inputs card vs CPU: the estimators solve in float64 and round the
+# result, so within 1e-5, or twice the CPU's gap to its float64 run where larger
+SLAM_F32_TOL = 1e-5
+SLAM_CALIB_TOL = 1e-5  # cli slam's calibration matrices card vs CPU
+STEREO_ROT_DEG, STEREO_TX_MIN, STEREO_INLIERS_MIN = 3.0, 0.98, 100  # tests/test_slam.py's bounds
+
+
+def slam_pose_problem(rng, n=48, n_outliers=8, slots=64):
+    """Padded 3D <-> 2D correspondences seen through a known pose, 0.5 px
+    noise and gross outliers (tests/test_slam.py's problem)."""
+    from sfa3d_tpu_torch.slam.pnp import rodrigues
+
+    R = rodrigues([0.05, -0.1, 0.03], "cpu").double().numpy()
+    K = np.array([[720.0, 0, 609.0], [0, 720.0, 172.0], [0, 0, 1.0]])
+    pts = np.stack([rng.uniform(-8, 8, slots), rng.uniform(-3, 3, slots), rng.uniform(6, 25, slots)], 1)
+    uv = (pts @ R.T + [0.3, -0.2, 0.5]) @ K.T
+    uv = uv[:, :2] / uv[:, 2:3] + rng.normal(0, 0.5, (slots, 2))
+    uv[rng.permutation(n)[:n_outliers]] += rng.uniform(40, 200, (n_outliers, 2))
+    return pts, uv, K, np.arange(slots) < n
+
+
+def slam_stereo_problem(rng, n=700, n_outliers=120, slots=1024):
+    """Padded stereo matches of random points seen by two cameras 0.3 rad
+    apart, 0.3 px noise and gross outliers."""
+    from sfa3d_tpu_torch.slam.pnp import rodrigues
+
+    R = rodrigues([0.02, 0.3, -0.01], "cpu").double().numpy()
+    K = np.array([[720.0, 0, 609.0], [0, 720.0, 172.0], [0, 0, 1.0]])
+    X = np.stack([rng.uniform(-10, 10, slots), rng.uniform(-4, 4, slots), rng.uniform(5, 40, slots)], 1)
+    uv1, uv2 = X @ K.T, (X @ R.T + [-1.0, 0.01, 0.02]) @ K.T
+    uv1 = uv1[:, :2] / uv1[:, 2:3] + rng.normal(0, 0.3, (slots, 2))
+    uv2 = uv2[:, :2] / uv2[:, 2:3] + rng.normal(0, 0.3, (slots, 2))
+    uv2[rng.permutation(n)[:n_outliers]] += rng.uniform(30, 150, (n_outliers, 2))
+    return uv1, uv2, K, np.arange(slots) < n
+
+
+def _gap(a, b):
+    a, b = (x.detach().cpu().double().numpy() for x in (a, b))
+    return float(np.abs(a - b).max())
+
+
+def _unit_sign(F):
+    F = F.detach().cpu().double().numpy()
+    F = F / np.linalg.norm(F)
+    return F * np.sign(F.ravel()[np.argmax(np.abs(F.ravel()))])
+
+
+def slam_ransac_parity(rng):
+    """ransac_pnp (128 hypotheses of 6 of 64 slots) and
+    estimate_fundamental_ransac (256 of 8 of 1024) -> essential ->
+    recover_pose on the card and the CPU with the same minimal sets, in
+    float64 and float32; host ms of each on the card."""
+    from sfa3d_tpu_torch.slam import epipolar, pnp
+
+    out = {}
+    pts, uv, K, valid = slam_pose_problem(rng)
+    sample_idx = pnp.draw_samples(valid, 128, 6, SEED)
+    runs = {}
+    for dtype in (np.float64, np.float32):
+        for dev in (DEVICE, "cpu"):
+            runs[dtype, str(dev)] = pnp.ransac_pnp(pts.astype(dtype), uv.astype(dtype), K.astype(dtype), valid,
+                                                   sample_idx=sample_idx, device=dev)
+    card64, cpu64 = runs[np.float64, str(DEVICE)], runs[np.float64, "cpu"]
+    card32, cpu32 = runs[np.float32, str(DEVICE)], runs[np.float32, "cpu"]
+    cpu_gap_r = _gap(cpu32[0][:, :3], cpu64[0][:, :3])
+    cpu_gap_t = _gap(cpu32[0][:, 3], cpu64[0][:, 3])
+    pnp_rec = {"float64_pose_err": _gap(card64[0], cpu64[0]),
+               "float64_masks_equal": bool(torch.equal(card64[1].cpu(), cpu64[1])),
+               "float32_rot_err": _gap(card32[0][:, :3], cpu32[0][:, :3]),
+               "float32_t_err": _gap(card32[0][:, 3], cpu32[0][:, 3]),
+               "cpu_float32_gap_to_float64": [cpu_gap_r, cpu_gap_t],
+               "float32_mask_diff": int((card32[1].cpu() != cpu32[1]).sum()),
+               "inliers": [int(card32[2]), int(cpu32[2])]}
+    if (pnp_rec["float64_pose_err"] > SLAM_F64_TOL or not pnp_rec["float64_masks_equal"]
+            or pnp_rec["float32_rot_err"] > max(SLAM_F32_TOL, 2 * cpu_gap_r)
+            or pnp_rec["float32_t_err"] > max(SLAM_F32_TOL, 2 * cpu_gap_t)
+            or pnp_rec["float32_mask_diff"] or int(card32[2]) < 30):
+        raise AssertionError(f"ransac_pnp card vs CPU: {pnp_rec}")
+    pts32, uv32, K32 = pts.astype(np.float32), uv.astype(np.float32), K.astype(np.float32)
+    pnp_rec["card_ms"] = host_ms(lambda: pnp.ransac_pnp(pts32, uv32, K32, valid, sample_idx=sample_idx,
+                                                        device=DEVICE)[2].item())
+    out["ransac_pnp"] = pnp_rec
+
+    uv1, uv2, K, valid = slam_stereo_problem(rng)
+    sample_idx = pnp.draw_samples(valid, 256, 8, SEED)
+    chain = {}
+    for dtype in (np.float64, np.float32):
+        for dev in (DEVICE, "cpu"):
+            F, mask = epipolar.estimate_fundamental_ransac(uv1.astype(dtype), uv2.astype(dtype), valid,
+                                                           sample_idx=sample_idx, device=dev)
+            E = epipolar.essential_from_fundamental(F, K.astype(dtype), K.astype(dtype))
+            chain[dtype, str(dev)] = (F, mask) + tuple(epipolar.recover_pose(E, uv1.astype(dtype), uv2.astype(dtype),
+                                                                             K.astype(dtype), mask))
+    f_rec = {}
+    ref = chain[np.float64, "cpu"]
+    for dtype in (np.float64, np.float32):
+        a, b = chain[dtype, str(DEVICE)], chain[dtype, "cpu"]
+        name = np.dtype(dtype).name
+        f_rec[name] = {"F_err": float(np.abs(_unit_sign(a[0]) - _unit_sign(b[0])).max()),
+                       "mask_diff": int((a[1].cpu() != b[1]).sum()), "R_err": _gap(a[2], b[2]),
+                       "t_err": _gap(a[3], b[3]), "cheirality": [float(a[4]), float(b[4])],
+                       "inliers": int(a[1].sum())}
+        r = f_rec[name]
+        if dtype == np.float64:
+            tol_F = tol_R = tol_t = SLAM_F64_TOL
+        else:  # the card against the CPU's own rounding of its float64 solve
+            r["cpu_gap_to_float64"] = [_gap(b[2], ref[2]), _gap(b[3], ref[3])]
+            tol_F = SLAM_F32_TOL
+            tol_R = max(SLAM_F32_TOL, 2 * r["cpu_gap_to_float64"][0])
+            tol_t = max(SLAM_F32_TOL, 2 * r["cpu_gap_to_float64"][1])
+        if (r["F_err"] > tol_F or r["R_err"] > tol_R or r["t_err"] > tol_t or r["mask_diff"]
+                or r["inliers"] < 500 or min(r["cheirality"]) < 0.7):
+            raise AssertionError(f"F-RANSAC -> recover_pose card vs CPU ({name}): {r}")
+    a32, b32 = uv1.astype(np.float32), uv2.astype(np.float32)
+    F, mask = epipolar.estimate_fundamental_ransac(a32, b32, valid, sample_idx=sample_idx, device=DEVICE)
+    E = epipolar.essential_from_fundamental(F, K.astype(np.float32), K.astype(np.float32))
+    f_rec["f_ransac_card_ms"] = host_ms(lambda: epipolar.estimate_fundamental_ransac(
+        a32, b32, valid, sample_idx=sample_idx, device=DEVICE)[1].sum().item())
+    f_rec["recover_pose_card_ms"] = host_ms(lambda: epipolar.recover_pose(E, a32, b32, K.astype(np.float32),
+                                                                          mask)[2].item())
+    out["fundamental_chain"] = f_rec
+    return out
+
+
+def slam_weights(root, kitti):
+    """A KFPN-18 .pth and a YOLOv8n .pt whose random weights give the fusion
+    work (the viz_cli phase's biases)."""
+    from sfa3d_tpu_torch.data.png import read_png_rgb
+    from sfa3d_tpu_torch.models.yolov8 import save_ultralytics_checkpoint
+
+    fd = FusedDetector(device="cpu", seed=SEED, imgsz=VIZ_LETTERBOX)
+    bump_fused_biases(fd, yolo_gate_bias(fd.yolo, read_png_rgb(f"{kitti}/testing/image_2/000000.png"),
+                                         VIZ_LETTERBOX))
+    pth, pt = f"{root}/kfpn.pth", f"{root}/yolo.pt"
+    torch.save(fd.kfpn.state_dict(), pth)
+    save_ultralytics_checkpoint(fd.yolo, pt)
+    return pth, pt
+
+
+def phase_slam(card, tmp_root):
+    """Geometry and SLAM on the card. RANSAC: ransac_pnp and the
+    fundamental chain card vs CPU on the same minimal sets (float64 within
+    1e-8; float32 within the stated round-off bounds). ORB on the port
+    writer's 375 x 1242 stereo pair card vs CPU: keypoints (points,
+    octaves, angles, responses), descriptors and the cross-checked matches
+    equal; then the calibration on the card within tests/test_slam.py's
+    bounds. cli stereo-calib --run_yolo over 2 pairs: `calibrated 2/2`,
+    hard_nms_keep once a pair. cli slam over 4 mini-KITTI frames in each
+    --calib_method and VISUAL_SLAM_SIM --use_pnp, on the card and with
+    --platform cpu: the drift sources' calibrations equal and --use_pnp's
+    within 1e-5 (its PnP solves in float64 on both), the fused counts
+    equal, and the images equal on every frame whose fused boxes are equal
+    (the networks differ card vs CPU within 1e-3, so a box corner can round
+    apart), at least one such frame; each kernel's launches a frame
+    checked. Host ms of each stage. Returns the launches of each path."""
+    import contextlib
+    import io
+
+    from sfa3d_tpu_torch.cli import slam as slam_cli
+    from sfa3d_tpu_torch.cli import stereo_calib as stereo_cli
+    from sfa3d_tpu_torch.data.png import read_png_grey
+    from sfa3d_tpu_torch.data.synthetic import write_mini_kitti
+    from sfa3d_tpu_torch.geometry.calibration import read_calib_file
+    from sfa3d_tpu_torch.slam import orb, stereo
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    rec = {"phase": "slam", "card": card["nvidia_smi"]}
+    rec.update(slam_ransac_parity(rng))
+
+    root = f"{tmp_root}/slam"
+    kitti = write_mini_kitti(f"{root}/kitti", n_frames=SLAM_FRAMES, seed=SEED)
+    left, right = (read_png_grey(f"{kitti}/training/image_{s}/000000.png") for s in (2, 3))
+    K = read_calib_file(f"{kitti}/training/calib/000000.txt")["P2"].reshape(3, 4)[:, :3]
+
+    # --- ORB and the matcher, card vs CPU ---
+    orb.detect_and_compute(left, device=DEVICE)  # warm-up
+    torch.cuda.synchronize()
+    orb_rec, sides = {}, {}
+    for name, img in (("left", left), ("right", right)):
+        card_t = {}
+        kp_card, des_card = orb.detect_and_compute(img, device=DEVICE, timings=card_t)
+        cpu_t = {}
+        kp_cpu, des_cpu = orb.detect_and_compute(img, device="cpu", timings=cpu_t)
+        equal = (all(np.array_equal(kp_card[k], kp_cpu[k]) for k in kp_card)
+                 and torch.equal(des_card.cpu(), des_cpu))
+        orb_rec[name] = {"keypoints": len(kp_card["pt"]), "per_level": np.bincount(kp_card["octave"]).tolist(),
+                         "equal_card_cpu": equal, "card_ms": card_t, "cpu_ms": cpu_t}
+        if not equal:
+            raise AssertionError(f"ORB {name}: keypoints or descriptors differ card vs CPU")
+        sides[name] = (des_card, des_cpu)
+    match_card = stereo.match_descriptors(sides["left"][0], sides["right"][0])
+    match_cpu = stereo.match_descriptors(sides["left"][1], sides["right"][1])
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(match_card, match_cpu)):
+        raise AssertionError("the matches differ card vs CPU")
+    orb_rec["matches"] = len(match_card[0])
+    orb_rec["match_card_ms"] = host_ms(lambda: stereo.match_descriptors(sides["left"][0], sides["right"][0])[0].sum().item())
+    orb_rec["match_cpu_ms"] = host_ms(lambda: stereo.match_descriptors(sides["left"][1], sides["right"][1]), reps=3)
+    rec["orb"] = orb_rec
+
+    stage_t = {}
+    result = stereo.perform_targetless_stereo_calibration(left, right, K, device=DEVICE, timings=stage_t)
+    angle = float(np.degrees(np.arccos(np.clip((np.trace(result.R) - 1) / 2, -1, 1)))) if result.success else None
+    tx = float(abs(result.t[0]) / np.linalg.norm(result.t)) if result.success else None
+    rec["calibration"] = {"success": result.success, "matches": result.n_matches, "inliers": result.n_inliers,
+                          "cheirality": result.cheirality_fraction, "rotation_deg": angle, "t_x": tx,
+                          "card_ms": {k: v for k, v in stage_t.items() if not k.startswith("orb_")},
+                          "orb_card_ms": sum(v for k, v in stage_t.items() if k.startswith("orb_"))}
+    if (not result.success or result.n_inliers < STEREO_INLIERS_MIN or angle >= STEREO_ROT_DEG
+            or tx <= STEREO_TX_MIN):
+        raise AssertionError(f"stereo calibration on the card: {rec['calibration']}")
+    print(f"slam: ORB {orb_rec['left']['keypoints']} + {orb_rec['right']['keypoints']} keypoints, "
+          f"{orb_rec['matches']} matches, equal card vs CPU; calibration {result.n_inliers} inliers, "
+          f"R {angle:.3f} deg off identity, |t_x| {tx:.5f}", flush=True)
+
+    pth, pt = slam_weights(root, kitti)
+    kernels = [bev_raster_reduce, fusion_loops.hard_nms_keep, fusion_loops.greedy_match,
+               fusion_loops.soft_nms_gaussian]
+
+    def run(main, argv):
+        for fn in kernels:
+            fn.launches = 0  # this run's launches only
+        out_dir = argv[argv.index("--output_dir") + 1]
+        with contextlib.redirect_stdout(io.StringIO()) as printed, WrittenImages(out_dir) as images:
+            records = main(argv)
+        torch.cuda.synchronize()
+        return records, {fn.__name__: fn.launches for fn in kernels}, images, printed.getvalue()
+
+    # --- cli stereo-calib --run_yolo over 2 pairs, on the card ---
+    argv = ["--dataset_dir", kitti, "--num_samples", str(SLAM_STEREO_PAIRS), "--run_yolo", "--yolo_weights", pt,
+            "--output_dir", f"{root}/stereo_calib"]
+    recs, launches, images, printed = run(stereo_cli.main, argv)
+    summary = printed.splitlines()[-1]
+    rec["stereo_calib_cli"] = {"summary": summary, "launches": launches, "images": sorted(images),
+                               "pairs": [{"id": r["id"], "inliers": r["result"].n_inliers,
+                                          "ms": {k: v for k, v in r["timings"].items() if not k.startswith("orb_")},
+                                          "orb_ms": sum(v for k, v in r["timings"].items() if k.startswith("orb_"))}
+                                         for r in recs]}
+    want = {k: v * SLAM_STEREO_PAIRS for k, v in SLAM_PAIR_LAUNCHES.items()}
+    if summary != f"calibrated {SLAM_STEREO_PAIRS}/{SLAM_STEREO_PAIRS} pairs successfully" or launches != want:
+        raise AssertionError(f"cli stereo-calib: {rec['stereo_calib_cli']}")
+
+    # --- cli slam: each configuration on the card and on the CPU ---
+    base = ["--dataset_dir", kitti, "--pretrained_path", pth, "--yolo_weights", pt]
+    rec["slam_cli"], launches_by_path = {}, {}
+    for name, flags in SLAM_CONFIGS.items():
+        card_recs, card_launches, card_images, card_out = run(slam_cli.main, base + flags + [
+            "--output_dir", f"{root}/slam_{name}_card"])
+        cpu_recs, cpu_launches, cpu_images, cpu_out = run(slam_cli.main, base + flags + [
+            "--output_dir", f"{root}/slam_{name}_cpu", "--platform", "cpu"])
+        want = {k: v * SLAM_FRAMES for k, v in SLAM_FRAME_LAUNCHES.items()}
+        calib_err = max(float(np.abs(a["calib"][k] - b["calib"][k]).max())
+                        for a, b in zip(card_recs, cpu_recs) for k in ("P2", "R0", "V2C"))
+        same_boxes = [f"{a['sample_id']:06d}_slam.jpg" for a, b in zip(card_recs, cpu_recs)
+                      if np.array_equal(a["boxes"], b["boxes"])]
+        differing = {k: int((card_images[k] != cpu_images[k]).any(2).sum()) for k in card_images}
+        entry = {"launches": card_launches, "expected": want, "launches_cpu": cpu_launches,
+                 "launches_per_frame": {k: v / SLAM_FRAMES for k, v in card_launches.items()},
+                 "fused": [r["fused"] for r in card_recs], "fused_cpu": [r["fused"] for r in cpu_recs],
+                 "calib_max_abs_err": calib_err, "frames_with_equal_boxes": len(same_boxes),
+                 "pixels_differing": differing,
+                 "card_ms": {k: statistics.median(r[k] for r in card_recs[1:])
+                             for k in ("detect_ms", "calib_ms", "fuse_ms", "draw_ms", "write_ms")},
+                 "cpu_ms": {k: statistics.median(r[k] for r in cpu_recs[1:])
+                            for k in ("detect_ms", "calib_ms", "fuse_ms", "draw_ms", "write_ms")}}
+        calib_tol = SLAM_CALIB_TOL if "--use_pnp" in flags else 0.0
+        ok = (card_launches == want and not any(cpu_launches.values()) and sorted(card_images) == sorted(cpu_images)
+              and len(card_images) == SLAM_FRAMES and any(entry["fused"]) and calib_err <= calib_tol
+              and entry["fused"] == entry["fused_cpu"] and card_out == cpu_out and bool(same_boxes)
+              and not any(differing[k] for k in same_boxes))
+        rec["slam_cli"][name] = entry
+        launches_by_path[f"slam_cli_{name}"] = card_launches
+        if not ok:
+            raise AssertionError(f"cli slam {name}: {entry}")
+        print(f"slam: cli slam {name} card ms a frame {entry['card_ms']}; calibration card vs CPU {calib_err:.3g}; "
+              f"pixels differing {sum(differing.values())}", flush=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    launches_by_path["stereo_calib_cli"] = rec["stereo_calib_cli"]["launches"]
+    return launches_by_path
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3983,6 +4302,7 @@ def main() -> int:
         export_launches = phase_export(card, tmp_root)
         viz_launches = phase_viz_cli(card, tmp_root)
         drive_launches = phase_drive_cli(card, tmp_root)
+        slam_launches = phase_slam(card, tmp_root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -4001,6 +4321,8 @@ def main() -> int:
         raster_rec["launches_by_path"][f"viz_cli_{path}"] = launches["bev_raster_reduce"]
     for path, launches in drive_launches.items():
         raster_rec["launches_by_path"][path] = launches["bev_raster_reduce"]
+    for path, launches in slam_launches.items():
+        raster_rec["launches_by_path"][path] = launches["bev_raster_reduce"]
     raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
     nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
     nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
@@ -4012,6 +4334,8 @@ def main() -> int:
         for path, launches in viz_launches.items():
             if path != "test":
                 rec["launches_by_path"][f"viz_cli_{path}"] = launches[rec["name"]]
+        for path, launches in slam_launches.items():
+            rec["launches_by_path"][path] = launches[rec["name"]]
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     track_rec["launches"] = serve_cli_assoc_launches

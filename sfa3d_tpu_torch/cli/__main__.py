@@ -1,7 +1,7 @@
 """Subcommand dispatcher of the port: python -m sfa3d_tpu_torch.cli <command> [args...].
 
-It lists the commands the port has; the JAX package's `slam` and
-`stereo-calib` are not ported yet."""
+It lists the commands the port has, every command of the JAX package's
+dispatcher."""
 
 import importlib
 import sys
@@ -17,6 +17,8 @@ COMMANDS = {
     "fuse": ("sfa3d_tpu_torch.cli.fuse", "camera-LiDAR fusion (nms / weighted / bayesian)"),
     "demo": ("sfa3d_tpu_torch.cli.demo", "raw-drive video demo (front or --two_sides)"),
     "track": ("sfa3d_tpu_torch.cli.track", "3D multi-object tracking video over a raw drive"),
+    "slam": ("sfa3d_tpu_torch.cli.slam", "fusion under per-frame SLAM calibration sources"),
+    "stereo-calib": ("sfa3d_tpu_torch.cli.stereo_calib", "targetless stereo self-calibration"),
 }
 
 

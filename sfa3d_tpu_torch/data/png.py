@@ -9,6 +9,7 @@ the three channels and alpha is dropped. Anything else (palette, 16-bit,
 interlaced) raises ValueError. `write_png_rgb` writes an (H, W, 3) RGB
 uint8 array with the up filter on every row.
 
+`read_png_grey` stands in for `cv2.imread(path, IMREAD_GRAYSCALE)`.
 `read_image_bgr` and `write_image_bgr` stand in for `cv2.imread` (colour)
 and `cv2.imwrite`: the reader sniffs the PNG or JPEG signature, the writer
 picks the codec by the file's extension (`.png`, or `.jpg` / `.jpeg`
@@ -112,6 +113,16 @@ def read_png_rgb(path: str) -> np.ndarray:
     """A PNG file -> (H, W, 3) RGB uint8."""
     with open(path, "rb") as f:
         return decode_png_rgb(f.read())
+
+
+def read_png_grey(path: str) -> np.ndarray:
+    """A PNG file -> (H, W) uint8 grey, as cv2.imread(path, IMREAD_GRAYSCALE)
+    gives it: libpng's integer RGB -> grey, (9797 R + 19234 G + 3737 B) >> 15
+    with no rounding term. The weights sum to 2**15, so a greyscale file
+    (repeated into the three channels) comes back as it is."""
+    rgb = read_png_rgb(path).astype(np.uint32)
+    grey = (9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2]) >> 15
+    return grey.astype(np.uint8)
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -90,3 +90,21 @@ class KittiCalibration:
 
     def project_velo_to_image(self, pts_velo):
         return self.project_rect_to_image(self.project_velo_to_rect(pts_velo))
+
+
+def save_calibration_kitti_format(
+    filepath: str,
+    calib: Dict[str, np.ndarray],
+    extra_comments: Optional[Dict[str, np.ndarray]] = None,
+):
+    """Write a KITTI-format calib txt: the known keys in KITTI's order, each
+    value as `{v:.12e}`, then `extra_comments` as `# key: values` lines."""
+    with open(filepath, "w") as f:
+        for key in ["P0", "P1", "P2", "P3", "R0_rect", "Tr_velo_to_cam", "Tr_imu_to_velo"]:
+            if key in calib:
+                vals = " ".join(f"{v:.12e}" for v in np.asarray(calib[key]).ravel())
+                f.write(f"{key}: {vals}\n")
+        if extra_comments:
+            for key, value in extra_comments.items():
+                vals = " ".join(f"{v:.12e}" for v in np.asarray(value).ravel())
+                f.write(f"# {key}: {vals}\n")

@@ -277,15 +277,15 @@ def test_cli_dispatcher_lists_the_ported_commands(capsys):
     from sfa3d_tpu_torch.cli import __main__ as dispatcher
 
     assert list(dispatcher.COMMANDS) == ["train", "yolo-train", "eval", "serve", "export", "argoverse-test",
-                                         "test", "fuse", "demo", "track"]
+                                         "test", "fuse", "demo", "track", "slam", "stereo-calib"]
     with pytest.raises(SystemExit) as ex:
         dispatcher.main(["--help"])
     assert ex.value.code == 0
     out = capsys.readouterr().out
     assert all(f"  {name}" in out for name in dispatcher.COMMANDS)
     with pytest.raises(SystemExit) as ex:
-        dispatcher.main(["slam"])
-    assert ex.value.code == 2 and "unknown command: slam" in capsys.readouterr().out
+        dispatcher.main(["slam-calib"])
+    assert ex.value.code == 2 and "unknown command: slam-calib" in capsys.readouterr().out
     # a command runs its module's main with the remaining arguments
     with pytest.raises(NotImplementedError, match="--compilation_cache"):
         dispatcher.main(["serve", "--compilation_cache", "--platform", "cpu"])

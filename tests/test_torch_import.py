@@ -38,7 +38,8 @@ def test_port_imports_without_jax():
                  "geometry.se3", "geometry.argoverse_calib", "data.argoverse", "cli.argoverse_test",
                  "runtime.export", "cli.export", "cli.__main__", "viz.raster", "viz.hershey", "viz.draw",
                  "viz.bev_projection", "cli.test", "cli.fuse", "data.jpeg", "data.avi", "cli.demo", "cli.track",
-                 "viz.kfpn_viz"):
+                 "viz.kfpn_viz", "slam.pnp", "slam.epipolar", "slam.calib_sources", "slam.orb",
+                 "slam.stereo", "cli.slam", "cli.stereo_calib"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
