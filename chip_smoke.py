@@ -81,6 +81,29 @@ Phases, each printing one JSON line:
           targets bit-exact); one epoch of the training CLI, whose
           checkpoint Detector loads, and its validation batches (16, 16 and
           a tail of 8 frames) on the card against the CPU route
+  dp_train  data parallelism (parallel/mesh.py) on the one card, strict
+          fp32 with deterministic cuDNN: (a) an SFA3D_DIST world of one over
+          NCCL in a subprocess, the CLI's step (4 x 16 frames at 608 x 608,
+          SGD) through make_mesh() bit-equal to the plain step, and the mesh
+          path forced at world 1 (NCCL all-reduces, global BatchNorm in
+          flax's order, the normalizers) within the train phase's
+          tolerances, step ms of each; (b) two gloo ranks sharing the card
+          (spawned), each preparing its 8 frames of a global batch of 16 at
+          608 x 608 (one bev_raster_reduce launch a rank and batch) and
+          making two SGD steps on it (the second timed), against one
+          process with the whole batch: the first step's loss, parameters
+          and BatchNorm statistics within the train phase's tolerances, the
+          ranks identical, step ms of each; (c) one epoch of the training
+          CLI with --mesh_shape 1 under SFA3D_DIST, whose checkpoint
+          Detector loads
+  native  the native host reader (native/preproc.cpp, g++ at first use) on
+          64 seeded KITTI-sized .bin scans (about 120k points; one overflows
+          MAX_POINTS_FILTERED, one holds NaN rows): the fused read and the
+          filter bit-equal to the numpy twin, ms per scan of each; the train
+          phase's loader at the CLI's defaults with and without it
+          (SFA3D_TPU_NO_NATIVE): wait per step, and one batch of 64 frames
+          split into read, filter and pad, the dataset's whole item,
+          collation, the copy to the card and the device preparation
   yolo_train_parity  one strict-fp32 YOLOv8n epoch (S = 3 x B = 2 at 64 x
           128, 3 classes, AdamW with a warmup, EMA, fixed flips) of the same
           model and data on the card and the CPU: loss terms, parameters,
@@ -1758,6 +1781,471 @@ def phase_train(card, tmp_root):
     train_err = max(max(prep["raster_vs_plain_on_card_max_abs_err"]), max(prep["prepare_vs_cpu_raster_max_abs_err"]),
                     max(val_err))
     return launches, n_batches, train_err, root
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism and the native host reader
+# ---------------------------------------------------------------------------
+
+DP_FRAMES = 16  # the two-rank check: a global batch of 16 at 608 x 608, 8 frames a rank
+DP_RANKS = 2
+DP_STEPS = 2  # SGD steps of the two-rank check on one batch: the first compared, the second timed warm
+DP_WORLD1_SCENES = 64  # the world-1 check: the CLI's step, S x B = 4 x 16 frames at 608 x 608
+DP_TIMED_STEPS = 3  # steps timed after the compared one, per variant
+DP_TIMEOUT = 600  # s for a launch of ranks or a subprocess, its start and imports included
+NATIVE_SCANS = 64  # seeded KITTI-sized scans (about 120k points, 25-30k in range)
+NATIVE_REPS = 3  # timed passes over the scans, per reader
+NATIVE_LOADER_EPOCHS = 3  # one-batch epochs through the train loader per reader setting
+
+
+def _sd_cpu(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def _step_differences(got, want, start, names):
+    """Largest differences of two trained state_dicts from one start: every
+    parameter as a share of the step's largest change, every BatchNorm
+    statistic relative to its tensor's largest, and the largest absolute."""
+    largest_change = max((want[k] - start[k]).abs().max().item() for k in names)
+    param, stat, absolute = 0.0, 0.0, 0.0
+    for k, w in want.items():
+        diff = (got[k].double() - w.double()).abs().max().item()
+        absolute = max(absolute, diff)
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k in names:
+            param = max(param, diff / largest_change)
+        else:
+            stat = max(stat, diff / max(w.abs().max().item(), 1e-30))
+    return {"param_max_err_share_of_largest_change": param, "bn_stat_max_rel_err": stat,
+            "max_abs_diff": absolute, "largest_change": largest_change}
+
+
+def _check_step_differences(what, diffs, loss_rel):
+    if not (loss_rel <= TRAIN_LOSS_RTOL and diffs["param_max_err_share_of_largest_change"] <= TRAIN_PARAM_SHARE
+            and diffs["bn_stat_max_rel_err"] <= TRAIN_STAT_RTOL):
+        raise AssertionError(f"{what}: loss {loss_rel} relative, {diffs} beyond the train phase's tolerances")
+
+
+def dp_world1_child():
+    """Run in a subprocess under SFA3D_DIST=1 with a world of one (NCCL on
+    the card): the CLI's step (S = 4 x B = 16 at 608 x 608, strict fp32,
+    deterministic cuDNN, SGD) without a mesh, through make_mesh() (world 1:
+    the one-device step, so bit-equal), and through the mesh path forced at
+    world 1 (a mesh whose `synced` is forced on: NCCL all-reduces, global
+    BatchNorm in flax's order, the normalizers). Prints one JSON line."""
+    from sfa3d_tpu_torch.config.train import OptimConfig
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.parallel import mesh as pmesh
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    class ForcedMesh(pmesh.Mesh):
+        """The mesh path at world size 1: collectives on a group of one."""
+
+        @property
+        def synced(self):
+            return True
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    if not pmesh.maybe_init_distributed():
+        raise AssertionError("SFA3D_DIST is not set")
+    try:
+        mesh = pmesh.make_mesh()
+        if mesh.world_size != 1 or torch.distributed.get_backend() != "nccl":
+            raise AssertionError(f"expected a world of one over NCCL, got {mesh}")
+        init_sd = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+        batch = _train_batch_from_scenes(range(DP_WORLD1_SCENES), DEVICE, (H, W), (H // 4, W // 4), 4)
+        spec = create_optimizer(OptimConfig(optimizer_type="sgd", lr=1e-2), num_epochs=10, steps_per_epoch=1)
+        variants = {"plain": None, "mesh_world1": mesh,
+                    "collectives_world1": ForcedMesh(mesh.world_size, mesh.rank, mesh.device, mesh.group)}
+        out = {}
+        for name, m in variants.items():
+            model = _train_model(init_sd).to(DEVICE)
+            state = create_train_state(model, spec)
+            step = make_train_step(model, spec, device=DEVICE if m is None else None, mesh=m)
+            state, stats = step(state, batch)
+            sd = _sd_cpu(model)
+            ms = []
+            for _ in range(DP_TIMED_STEPS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, _ = step(state, batch)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            out[name] = ({k: float(v) for k, v in stats.items()}, sd, ms)
+        (ps, psd, pms), start_sd = out["plain"], {k: v.cpu() for k, v in init_sd.items()}
+        names = [k for k, _ in _train_model(init_sd).named_parameters()]
+        report = {"world_size": mesh.world_size, "backend": "nccl", "device": str(mesh.device),
+                  "scenes": DP_WORLD1_SCENES, "plain_step_ms": pms}
+        for name in ("mesh_world1", "collectives_world1"):
+            s, sd, ms = out[name]
+            loss_rel = max(abs(s[k] - ps[k]) / abs(ps[k]) for k in ps)
+            report[name] = {"loss_max_rel_diff": loss_rel, **_step_differences(sd, psd, start_sd, names),
+                            "step_ms": ms}
+        print(json.dumps(report), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _dp_raw_batch(seeds):
+    """One global batch (S = 1, B = len(seeds)) of raw padded scans,
+    labels and flips, on the host: what the loader's collation hands
+    prepare_train_batch."""
+    from sfa3d_tpu_torch.data.synthetic import synthetic_scene
+
+    n = len(seeds)
+    pts, valid = np.zeros((n, N, 4), np.float32), np.zeros((n, N), bool)
+    labels, n_lab = np.zeros((n, 50, 8), np.float32), np.zeros(n, np.int32)
+    for i, sd in enumerate(seeds):
+        scan, lab = synthetic_scene(sd)
+        pts[i], valid[i] = bev_ops.filter_and_pad_points(scan, N)
+        labels[i, :len(lab)], n_lab[i] = lab, len(lab)
+    hflip = np.arange(n) % 3 == 1
+    arrays = {"points": pts, "valid": valid, "labels": labels, "n_labels": n_lab, "hflip": hflip}
+    return {k: torch.from_numpy(v)[None] for k, v in arrays.items()}
+
+
+def _dp_prepare(raw, bev_size):
+    """A rank's (S, B) raw frames -> its train batch, as the loader's
+    collation does: one prepare_train_batch over the S x B frames (one
+    bev_raster_reduce launch)."""
+    from sfa3d_tpu_torch.data.loader import prepare_train_batch
+
+    s, b = raw["points"].shape[:2]
+    flat = [raw[k].flatten(0, 1) for k in ("points", "valid", "labels", "n_labels", "hflip")]
+    bev, targets = prepare_train_batch(*flat, bev_size=tuple(bev_size), hm_size=(bev_size[0] // 4, bev_size[1] // 4))
+    return {"bev": bev.reshape(s, b, *bev.shape[1:]),
+            "targets": {k: v.reshape(s, b, *v.shape[1:]) for k, v in targets.items()}}
+
+
+def dp_replay(case, mesh=None):
+    """The two-rank check's SGD steps (lr 1e-2, strict fp32, deterministic
+    cuDNN) from case["state_dict"], one per global raw batch of
+    case["raw_batches"], each prepared on the card at case["bev_size"]: on
+    one process over the whole batch, or with `mesh` over this rank's slice
+    of it after `replicate`. Returns the per-step stats, step ms and
+    prepare ms, the state_dicts after the first and the last step, and the
+    raster launches."""
+    from sfa3d_tpu_torch.config.train import OptimConfig
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        dev = torch.device(DEVICE) if mesh is None else mesh.device
+        model = _train_model(case["state_dict"]).to(dev)
+        spec = create_optimizer(OptimConfig(optimizer_type="sgd", lr=1e-2), num_epochs=10, steps_per_epoch=1)
+        state = create_train_state(model, spec)
+        if mesh is not None:
+            replicate(mesh, state)
+        step = make_train_step(model, spec, device=dev if mesh is None else None, mesh=mesh)
+        here = mesh if mesh is not None else Mesh(1, 0, dev)
+        out = {"stats": [], "step_ms": [], "prepare_ms": []}
+        bev_raster_reduce.launches = 0
+        for raw in case["raw_batches"]:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            batch = _dp_prepare(shard_batch(here, raw, axis=1), case["bev_size"])
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            state, stats = step(state, batch)
+            torch.cuda.synchronize(dev)
+            out["prepare_ms"].append((t1 - t0) * 1e3)
+            out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+            out["stats"].append({k: float(v) for k, v in stats.items()})
+            out.setdefault("first_state_dict", _sd_cpu(model))
+        out["raster_launches"] = bev_raster_reduce.launches
+        out["state_dict"] = _sd_cpu(model)
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def dp_rank(rank, init_method, case_path, prefix):
+    """One of DP_RANKS spawned ranks sharing the card over gloo (NCCL
+    refuses two ranks on one GPU): dp_replay over the group, saved with the
+    rank, the world size and whether jax was imported to
+    `<prefix>.rank<r>.pt`."""
+    import os
+
+    from sfa3d_tpu_torch.parallel.mesh import INIT_TIMEOUT, make_mesh
+
+    torch.cuda.set_device(0)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks meet on the loopback
+    torch.distributed.init_process_group("gloo", init_method=init_method, world_size=DP_RANKS, rank=rank,
+                                         timeout=INIT_TIMEOUT)
+    try:
+        mesh = make_mesh()
+        out = dp_replay(torch.load(case_path, weights_only=False), mesh)
+        out.update(rank=mesh.rank, world_size=mesh.world_size,
+                   jax_imported=any(m == "jax" or m.startswith(("jax.", "sfa3d_tpu.")) for m in sys.modules))
+        torch.save(out, f"{prefix}.rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _spawn_dp_ranks(case_path, prefix, timeout=DP_TIMEOUT):
+    """Start DP_RANKS dp_rank processes (the spawn start method) and wait;
+    kill every rank still running after `timeout` seconds and raise."""
+    from sfa3d_tpu_torch.parallel.mesh import free_port
+
+    ctx = torch.multiprocessing.start_processes(
+        dp_rank, args=(f"tcp://127.0.0.1:{free_port()}", case_path, prefix), nprocs=DP_RANKS, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{DP_RANKS} ranks still running after {timeout} s; killed")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+
+
+def _run_session(cmd, env, timeout=DP_TIMEOUT):
+    """Run a command in its own session; on a timeout kill the session (its
+    children too) and raise."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[:4])} ... exited {proc.returncode}:\n{err[-4000:]}")
+    return out, err
+
+
+def _dist_env(world=1, rank=0):
+    import os
+
+    from sfa3d_tpu_torch.parallel.mesh import free_port
+
+    return dict(os.environ, SFA3D_DIST="1", SFA3D_COORDINATOR=f"127.0.0.1:{free_port()}",
+                SFA3D_NUM_PROCESSES=str(world), SFA3D_PROCESS_ID=str(rank))
+
+
+def phase_dp_train(card, tmp_root, root):
+    """Data parallelism on the one card. (a) An SFA3D_DIST world of one over
+    NCCL, in a subprocess: the CLI's step through make_mesh() bit-equal to
+    the plain step, and the mesh path forced at world 1 within the train
+    phase's tolerances; step ms of each. (b) Two gloo ranks sharing the card,
+    each preparing its 8 frames of a global batch of 16 at 608 x 608 (one
+    bev_raster_reduce launch per rank and batch), strict-fp32 SGD steps on
+    it (DP_STEPS), against one process with the whole batch on the card:
+    the first step's losses, parameters and BatchNorm statistics within
+    the train phase's tolerances, the ranks identical after every step,
+    the second step timed warm (two steps of SGD at lr 1e-2 from random
+    weights move parameters by 20 and amplify float32 rounding past the
+    one-step tolerances). (c) One epoch of
+    the training CLI with --mesh_shape 1 under
+    SFA3D_DIST on the card, whose checkpoint Detector loads."""
+    import os
+
+    t0 = time.perf_counter()
+    out, _ = _run_session([sys.executable, "-c", "import chip_smoke; chip_smoke.dp_world1_child()"], _dist_env())
+    world1 = json.loads(out.strip().splitlines()[-1])
+    if world1["mesh_world1"]["max_abs_diff"] != 0.0 or world1["mesh_world1"]["loss_max_rel_diff"] != 0.0:
+        raise AssertionError(f"the world-1 mesh step differs from the plain step: {world1['mesh_world1']}")
+    forced = world1["collectives_world1"]
+    _check_step_differences("the mesh path forced at world 1", forced, forced["loss_max_rel_diff"])
+    world1_s = time.perf_counter() - t0
+
+    init_sd = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    case = {"state_dict": init_sd, "raw_batches": [_dp_raw_batch(range(100, 100 + DP_FRAMES))] * DP_STEPS,
+            "bev_size": (H, W)}
+    case_path, prefix = os.path.join(tmp_root, "dp_case.pt"), os.path.join(tmp_root, "dp_rank")
+    torch.save(case, case_path)
+    t0 = time.perf_counter()
+    _spawn_dp_ranks(case_path, prefix)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{prefix}.rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    one = dp_replay(case)
+    if one["raster_launches"] != DP_STEPS:
+        raise AssertionError(f"{DP_STEPS} one-process batches launched the raster {one['raster_launches']} times")
+    names = [k for k, _ in _train_model(init_sd).named_parameters()]
+    start_sd = {k: v.cpu() for k, v in init_sd.items()}
+    per_rank = []
+    for r in ranks:
+        if r["world_size"] != DP_RANKS or r["jax_imported"]:
+            raise AssertionError(f"rank {r['rank']}: world {r['world_size']}, jax imported {r['jax_imported']}")
+        if r["raster_launches"] != DP_STEPS:
+            raise AssertionError(f"rank {r['rank']} launched the raster {r['raster_launches']} times "
+                                 f"for {DP_STEPS} batches")
+        loss_rel = max(abs(r["stats"][0][k] - v) / abs(v) for k, v in one["stats"][0].items())
+        diffs = _step_differences(r["first_state_dict"], one["first_state_dict"], start_sd, names)
+        _check_step_differences(f"rank {r['rank']} of {DP_RANKS}", diffs, loss_rel)
+        per_rank.append({"rank": r["rank"], "loss_max_rel_err": loss_rel, **diffs, "step_ms": r["step_ms"],
+                         "prepare_ms": r["prepare_ms"], "raster_launches_per_batch": r["raster_launches"] / DP_STEPS})
+    a, b = ranks
+    if not all(torch.equal(a[sd][k], b[sd][k]) for sd in ("first_state_dict", "state_dict") for k in a[sd]):
+        raise AssertionError("the two ranks' parameters or statistics differ")
+
+    t0 = time.perf_counter()
+    run_dir = os.path.join(tmp_root, "dist_cli")
+    _run_session([sys.executable, "-m", "sfa3d_tpu_torch.cli.train", "--dataset_dir", root, "--root-dir", run_dir,
+                  "--num_epochs", "1", "--checkpoint_freq", "1", "--seed", str(SEED), "--print_freq", "1",
+                  "--mesh_shape", "1"], _dist_env())
+    cli_s = time.perf_counter() - t0
+    ckpt = os.path.join(run_dir, "checkpoints", "fpn_resnet_18", "Model_fpn_resnet_18_epoch_1.pth")
+    Detector(checkpoint=ckpt, device=DEVICE)
+    emit({"phase": "dp_train", "world1": world1, "world1_seconds": world1_s,
+          "two_gloo_ranks_on_one_card": {"global_batch": DP_FRAMES, "frames_per_rank": DP_FRAMES // DP_RANKS,
+                                         "bev": [H, W], "per_rank": per_rank, "one_process_step_ms": one["step_ms"],
+                                         "one_process_prepare_ms": one["prepare_ms"], "seconds": ranks_s},
+          "cli_sfa3d_dist_mesh_shape_1_epoch_seconds": cli_s, "card": card["nvidia_smi"]})
+    return [r["raster_launches"] for r in ranks]
+
+
+def _kitti_sized_scan(rng, seed):
+    """A synthetic scene (25-30k points in range) and about 85k points out
+    of range behind and beside it: about 120k points, a raw KITTI scan."""
+    from sfa3d_tpu_torch.data.synthetic import synthetic_scene
+
+    scan, _ = synthetic_scene(seed)
+    far = np.empty((85000, 4), np.float32)
+    far[:, 0] = rng.uniform(-80, 0, len(far))
+    far[:, 1] = rng.uniform(-80, 80, len(far))
+    far[:, 2] = rng.uniform(-3, 1, len(far))
+    far[:, 3] = rng.uniform(0, 1, len(far))
+    out = np.concatenate([scan, far])
+    return out[rng.permutation(len(out))]
+
+
+def _timed_pass(fn, items, reps=NATIVE_REPS):
+    """Median over `reps` passes of the ms per item of fn over `items`."""
+    per = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        for x in items:
+            fn(x)
+        per.append((time.perf_counter() - t) * 1e3 / len(items))
+    return statistics.median(per)
+
+
+def phase_native(card, tmp_root, root):
+    """The native host reader (native/preproc.cpp, built by g++ at first
+    use) against its numpy twin on 64 seeded KITTI-sized scans written as
+    .bin files, one of which overflows MAX_POINTS_FILTERED and one holds NaN
+    rows: the fused read and the filter bit-equal to numpy's; ms per scan
+    of each. Then the train phase's loader at the CLI's defaults with and
+    without it (SFA3D_TPU_NO_NATIVE): the wait per step, and one batch of
+    64 frames split into the dataset's read, augmentation and filter,
+    collation, the copy to the card and the device preparation."""
+    import os
+    import warnings
+
+    from sfa3d_tpu_torch import native
+    from sfa3d_tpu_torch.config.train import parse_train_configs
+    from sfa3d_tpu_torch.data.loader import create_train_loader, prepare_train_batch
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    os.environ.pop("SFA3D_TPU_NO_NATIVE", None)
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    scans = [_kitti_sized_scan(rng, 300 + i) for i in range(NATIVE_SCANS)]
+    inside, mask = bev_ops._filter_and_pad_numpy(scans[1], N, cnf.boundary)
+    scans[1] = np.concatenate([scans[1], inside[mask][:12000]])  # about 40k points in range: overflows N
+    scans[2][rng.integers(0, len(scans[2]), 500), rng.integers(0, 3, 500)] = np.nan
+    paths = []
+    for i, s in enumerate(scans):
+        paths.append(os.path.join(tmp_root, f"scan_{i:03d}.bin"))
+        s.tofile(paths[-1])
+    kept = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for s, p in zip(scans, paths):
+            want = bev_ops._filter_and_pad_numpy(np.fromfile(p, np.float32).reshape(-1, 4), N, cnf.boundary)
+            for got in (native.read_velodyne_filtered(p, N, cnf.boundary), native.filter_pad_points(s, N, cnf.boundary)):
+                if got[0].tobytes() != want[0].tobytes() or got[1].tobytes() != want[1].tobytes():
+                    raise AssertionError(f"{p}: the native reader differs from the numpy twin")
+            kept.append(int(want[1].sum()))
+    overflow = [str(w.message) for w in caught]
+    if kept[1] != N or len(overflow) != 3 or "keeping the first" not in overflow[0]:
+        raise AssertionError(f"the overflowing scan kept {kept[1]} of {N} with warnings {overflow}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        per_scan = {
+            "native_read_filter_pad_ms": _timed_pass(lambda p: native.read_velodyne_filtered(p, N, cnf.boundary), paths),
+            "numpy_read_filter_pad_ms": _timed_pass(
+                lambda p: bev_ops._filter_and_pad_numpy(np.fromfile(p, np.float32).reshape(-1, 4), N, cnf.boundary),
+                paths),
+            "numpy_read_ms": _timed_pass(lambda p: np.fromfile(p, np.float32).reshape(-1, 4), paths),
+            "native_filter_pad_ms": _timed_pass(lambda s: native.filter_pad_points(s, N, cnf.boundary), scans),
+            "numpy_filter_pad_ms": _timed_pass(lambda s: bev_ops._filter_and_pad_numpy(s, N, cnf.boundary), scans),
+        }
+
+    configs = parse_train_configs(["--dataset_dir", root, "--root-dir", os.path.join(tmp_root, "native_run"),
+                                   "--seed", str(SEED)])
+    init_sd = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    loader_runs = {}
+    try:
+        for setting in ("native", "numpy"):
+            if setting == "numpy":
+                os.environ["SFA3D_TPU_NO_NATIVE"] = "1"
+            loader = create_train_loader(configs, device=DEVICE)
+            ds = loader.dataset
+            model = _train_model(init_sd).to(DEVICE)
+            spec = create_optimizer(configs.optim, configs.runtime.num_epochs, len(loader))
+            step = make_train_step(model, spec, compute_dtype=configs.model.compute_dtype, device=DEVICE)
+            _, ms, _, wait, _ = _timed_steps(step, create_train_state(model, spec),
+                                             _epoch_batches(loader, NATIVE_LOADER_EPOCHS, 40))
+            frames = loader.batch_size * loader.subdivisions
+            ids = [int(ds.sample_id_list[i]) for i in range(frames)]
+            t = time.perf_counter()
+            raw = [ds.get_lidar(i) for i in ids]
+            read_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            for r in raw:
+                bev_ops.filter_and_pad_points(r, ds.max_points)
+            filter_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            for i in ids:
+                ds._read_points_filtered(i)
+            fused_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            samples = [ds[i] for i in range(frames)]
+            getitem_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            host = [np.stack([x.points for x in samples]), np.stack([x.valid for x in samples]),
+                    np.stack([x.labels for x in samples]), np.int32([x.n_labels for x in samples]),
+                    np.asarray([bool(getattr(x, "hflipped", False)) for x in samples])]
+            collate_ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dev = [torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE) for a in host]
+            torch.cuda.synchronize()
+            copy_ms = (time.perf_counter() - t) * 1e3
+            loader_runs[setting] = {
+                "step_ms": ms, "loader_wait_ms": wait, "frames_per_batch": frames,
+                "batch_split_ms": {"read": read_ms, "filter_pad": filter_ms,
+                                   "read_filter_pad_without_augmentation": fused_ms,
+                                   "getitem_total_read_aug_filter_labels": getitem_ms,
+                                   "collate": collate_ms, "copy_to_card": copy_ms,
+                                   "copy_bytes": int(sum(a.nbytes for a in host)),
+                                   "prepare_on_card": cuda_ms(lambda: prepare_train_batch(*dev), reps=5)},
+                "host_reader": "native" if native.enabled() else "numpy"}
+    finally:
+        os.environ.pop("SFA3D_TPU_NO_NATIVE", None)
+    emit({"phase": "native", "library": str(lib.name), "build_seconds": build_s, "scans": NATIVE_SCANS,
+          "points_per_scan_mean": float(np.mean([len(s) for s in scans])), "in_range_kept_mean": float(np.mean(kept)),
+          "bit_equal": True, "overflow_warnings": len(overflow), "per_scan": per_scan, "loader": loader_runs,
+          "num_workers": configs.data.num_workers, "card": card["nvidia_smi"]})
 
 
 # ---------------------------------------------------------------------------
@@ -4294,6 +4782,8 @@ def main() -> int:
     phase_yolo_train_parity(card)
     with tempfile.TemporaryDirectory() as tmp_root:
         train_launches, train_batches, train_err, root = phase_train(card, tmp_root)
+        dp_launches = phase_dp_train(card, tmp_root, root)
+        phase_native(card, tmp_root, root)
         val, yolo_cli_launches, best_path = phase_yolo_train(card, root, f"{tmp_root}/yolo")
         nms_eval_shape, yolo_eval_launches = phase_yolo_eval(card, val, best_path)
         kitti_launches = phase_kitti_eval(card, root, tmp_root)
@@ -4314,6 +4804,8 @@ def main() -> int:
     raster_rec["launches_by_path"] = {"lidar_serve": lidar_raster_launches,
                                       "fused_serve": fused["bev_raster_reduce"], "train": train_launches,
                                       "kitti_eval": kitti_launches, "serve_cli": serve_cli_raster_launches}
+    for rank, launches in enumerate(dp_launches):  # per rank: one a collated batch, DP_STEPS batches
+        raster_rec["launches_by_path"][f"dp_train_rank{rank}"] = launches
     raster_rec["launches_by_path"]["export_detector"] = export_launches["detector"]
     raster_rec["launches_by_path"]["export_fused"] = export_launches["fused"]["bev_raster_reduce"]
     raster_rec["launches_by_path"]["serve_cli_artifact"] = export_launches["serve_cli"]

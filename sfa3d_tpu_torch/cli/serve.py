@@ -13,8 +13,8 @@ Protocol (one JSON object per line):
   error:    {"id": <any>, "error": "..."}
 
 With --fused the server runs the camera + LiDAR fusion program, and
-requests carry the camera frame (a PNG file, read with `data/png.py`) and
-calibration:
+requests carry the camera frame (a PNG or JPEG file, read with
+`data/png.py::read_image_bgr`) and calibration:
   request:  {"id": <any>, "lidar": "scan.bin", "image": "frame.png",
              "calib": "calib.txt"}   (calib omitted -> dataset mean)
   response: {"id": <any>, "fused": {"boxes": [[x,y,w,h],...], "scores":
@@ -96,14 +96,20 @@ def _parse(argv):
 
 
 def read_image(path: str):
-    """A request's camera frame -> (H, W, 3) RGB uint8. The port reads PNG
-    only (data/png.py); the JAX CLI reads any format cv2 does."""
-    from sfa3d_tpu_torch.data.png import read_png_rgb
+    """A request's camera frame -> (H, W, 3) RGB uint8: a PNG or a JPEG
+    file (told apart by its first bytes, `data/png.py::read_image_bgr`),
+    flipped from BGR to RGB as the JAX CLI does after cv2.imread. Any
+    other file, or a JPEG the decoder refuses (a progressive one, say),
+    raises ValueError naming the file."""
+    import numpy as np
+
+    from sfa3d_tpu_torch.data.png import read_image_bgr
 
     try:
-        return read_png_rgb(path)
-    except ValueError as e:
-        raise ValueError(f"image {path}: {e} (sfa3d_tpu_torch serve --fused reads PNG frames only)") from None
+        bgr = read_image_bgr(path)
+    except (ValueError, IndexError) as e:
+        raise ValueError(f"image {path}: {e}") from None
+    return np.ascontiguousarray(bgr[:, :, ::-1])
 
 
 def _submit(server, req):

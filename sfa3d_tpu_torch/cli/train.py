@@ -13,15 +13,44 @@ weights-only loading (`--pretrained_path`), and the learning-rate curve as
 a PNG (drawn with `viz/raster.py`). It runs on cuda (raising without a
 GPU) unless `--platform cpu` is given. Flags whose work is not ported raise
 NotImplementedError (`config/train.py::refuse_unported`).
+
+Data parallelism (`parallel/mesh.py`), one process per device:
+- SFA3D_DIST=1 with SFA3D_COORDINATOR, SFA3D_NUM_PROCESSES and
+  SFA3D_PROCESS_ID: this process is one rank of that launch (NCCL on cuda,
+  gloo under --platform cpu); --mesh_shape, if given, must equal the world;
+- else `--mesh_shape N` above 1 (None: every visible GPU on cuda) spawns N
+  local ranks, rank i on cuda:i, or N CPU ranks under --platform cpu;
+- else one process, the one-device step, with no collective.
+Each rank loads its 1/N of every global batch (the loader's process
+sharding: the same frames per step as JAX's mesh), takes the steps every
+rank takes (the least of the ranks' batch counts), and logs the global
+losses. Rank 0 alone logs, writes TensorBoard, the LR plot and the
+checkpoints (the other ranks wait at a barrier until a checkpoint is
+written) and runs --val_ap; resume and --pretrained_path load on every
+rank and the state is then broadcast from rank 0.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
 import numpy as np
 import torch
+
+
+class _QuietLogger:
+    """The logger of a rank other than 0: logs nothing."""
+
+    def info(self, msg: str):
+        pass
+
+    def warning(self, msg: str):
+        pass
+
+    def close(self):
+        pass
 
 
 def _device(configs) -> torch.device:
@@ -31,11 +60,41 @@ def _device(configs) -> torch.device:
 
 
 def main(argv=None):
+    """Parse the flags and train: one rank of an SFA3D_DIST launch, N
+    spawned local ranks (--mesh_shape N > 1), or one process. Returns the
+    validation loss with --evaluate (rank 0's, or None after a spawn)."""
+    from sfa3d_tpu_torch.config.train import mesh_size, parse_train_configs
+    from sfa3d_tpu_torch.parallel.mesh import maybe_init_distributed, spawn_ranks
+
+    configs = parse_train_configs(argv)
+    device = _device(configs)
+    if maybe_init_distributed(device=device):
+        try:
+            return train(configs)
+        finally:
+            torch.distributed.destroy_process_group()
+    n = mesh_size(configs)
+    if n > 1:
+        spawn_ranks(_rank_main, n, args=(argv,), device="cpu" if device.type == "cpu" else None)
+        return None
+    return train(configs)
+
+
+def _rank_main(argv) -> None:
+    """A spawned rank (`mesh.py::spawn_ranks` has joined it to the group)."""
     from sfa3d_tpu_torch.config.train import parse_train_configs
+
+    train(parse_train_configs(argv))
+
+
+def train(configs):
+    """The training run of this process, data-parallel over the process
+    group when one is initialised (a world of one otherwise)."""
     from sfa3d_tpu_torch.data.loader import create_train_loader, create_val_loader
     from sfa3d_tpu_torch.models import create_model
     from sfa3d_tpu_torch.models.port import load_torch_checkpoint
     from sfa3d_tpu_torch.parallel import create_train_state, make_eval_step, make_train_step
+    from sfa3d_tpu_torch.parallel.mesh import barrier, make_mesh, min_over_ranks, replicate
     from sfa3d_tpu_torch.runtime.checkpoint import (
         latest_checkpoint,
         load_checkpoint,
@@ -45,13 +104,22 @@ def main(argv=None):
     from sfa3d_tpu_torch.runtime.logger import AverageMeter, Logger, ProgressMeter, create_tb_writer
     from sfa3d_tpu_torch.runtime.schedules import create_optimizer
 
-    configs = parse_train_configs(argv)
-    device = _device(configs)
-    os.makedirs(configs.checkpoints_dir, exist_ok=True)
-    os.makedirs(configs.logs_dir, exist_ok=True)
-    logger = Logger(configs.logs_dir, configs.runtime.saved_fn)
-    tb_writer = create_tb_writer(configs.logs_dir)
+    dev = _device(configs)
+    mesh = make_mesh(configs.runtime.mesh_shape if torch.distributed.is_initialized() else None,
+                     device=dev if dev.type == "cpu" else None)
+    device = mesh.device if mesh.synced else dev
+    step_mesh = mesh if mesh.synced else None  # at world size 1 the one-device step
+    chief = mesh.rank == 0
+    if chief:
+        os.makedirs(configs.checkpoints_dir, exist_ok=True)
+        os.makedirs(configs.logs_dir, exist_ok=True)
+    logger = Logger(configs.logs_dir, configs.runtime.saved_fn) if chief else _QuietLogger()
+    tb_writer = create_tb_writer(configs.logs_dir) if chief else None
     logger.info(f"device: {device}, compute dtype {configs.model.compute_dtype}")
+    if mesh.synced:
+        logger.info(f"data parallel: {mesh.world_size} ranks over {torch.distributed.get_backend()}, "
+                    f"global batch {configs.runtime.batch_size}, "
+                    f"{configs.runtime.batch_size // mesh.world_size} frames a rank")
 
     model = create_model(configs.model.arch, configs.model.head_conv)
     model.init_weights(torch.Generator().manual_seed(configs.runtime.seed))
@@ -61,12 +129,14 @@ def main(argv=None):
     model = model.to(device)
     logger.info(f"model {configs.model.arch}: {sum(p.numel() for p in model.parameters()):,} params")
 
-    train_loader = create_train_loader(configs, device=device)
-    steps_per_epoch = max(1, len(train_loader))
+    shards = dict(process_index=mesh.rank, process_count=mesh.world_size, device=device)
+    train_loader = create_train_loader(configs, **shards)
+    steps_per_epoch = max(1, min_over_ranks(mesh, len(train_loader)))
     logger.info(f"number of batches in training set: {steps_per_epoch}")
     tx = create_optimizer(configs.optim, configs.runtime.num_epochs, steps_per_epoch)
-    plot_lr_schedule(tx.lr, configs.runtime.num_epochs, steps_per_epoch, configs.logs_dir,
-                     configs.optim.lr_type)
+    if chief:
+        plot_lr_schedule(tx.lr, configs.runtime.num_epochs, steps_per_epoch, configs.logs_dir,
+                         configs.optim.lr_type)
 
     use_ema = configs.optim.ema_decay > 0.0
     state = create_train_state(model, tx, ema=use_ema)
@@ -82,15 +152,16 @@ def main(argv=None):
         state, epoch = load_checkpoint(resume_path, state)
         start_epoch = epoch + 1
         logger.info(f"resumed from {resume_path} at epoch {epoch}")
+    state = replicate(mesh, state)
 
     train_step = make_train_step(model, tx, ema_decay=configs.optim.ema_decay,
                                  ema_tau=configs.optim.ema_tau,
-                                 compute_dtype=configs.model.compute_dtype, device=device)
-    eval_step = make_eval_step(model, device=device)
+                                 compute_dtype=configs.model.compute_dtype, device=device, mesh=step_mesh)
+    eval_step = make_eval_step(model, device=device, mesh=step_mesh)
 
     try:
         if configs.runtime.evaluate:
-            val_loss = validate(create_val_loader(configs, device=device), state, eval_step)
+            val_loss = validate(create_val_loader(configs, **shards), state, eval_step, step_mesh)
             logger.info(f"val_loss: {val_loss:.4e}")
             return val_loss
 
@@ -104,7 +175,8 @@ def main(argv=None):
             progress = ProgressMeter(steps_per_epoch, [batch_time, data_time, losses],
                                      prefix=f"Train - Epoch: [{epoch}/{configs.runtime.num_epochs}]")
             start = time.time()
-            for batch_idx, batch in enumerate(train_loader):
+            batches = iter(train_loader)
+            for batch_idx, batch in enumerate(itertools.islice(batches, steps_per_epoch)):
                 data_time.update(time.time() - start)
                 state, stats = train_step(state, batch)
                 global_step += 1
@@ -117,21 +189,24 @@ def main(argv=None):
                 if global_step % configs.runtime.print_freq == 0:
                     logger.info(progress.get_message(batch_idx))
                 start = time.time()
+            _close(batches)  # a rank with a batch more than the others leaves it
             logger.info(progress.get_message(steps_per_epoch - 1))
 
             if (not configs.runtime.no_val) and epoch % configs.runtime.checkpoint_freq == 0:
-                val_loss = validate(create_val_loader(configs, device=device), state, eval_step)
+                val_loss = validate(create_val_loader(configs, **shards), state, eval_step, step_mesh)
                 logger.info(f"val_loss: {val_loss:.4e}")
                 if tb_writer is not None:
                     tb_writer.add_scalar("Val_loss", val_loss, epoch)
 
             if epoch % configs.runtime.checkpoint_freq == 0:
-                path = save_checkpoint(configs.checkpoints_dir, configs.runtime.saved_fn, state, epoch)
-                logger.info(f"save a checkpoint at {path}")
-                if configs.runtime.val_ap:
-                    maybe_val_ap(configs, path, epoch, logger, tb_writer)
-                prune_checkpoints(configs.checkpoints_dir, configs.runtime.saved_fn,
-                                  configs.runtime.keep_checkpoints)
+                if chief:
+                    path = save_checkpoint(configs.checkpoints_dir, configs.runtime.saved_fn, state, epoch)
+                    logger.info(f"save a checkpoint at {path}")
+                    if configs.runtime.val_ap:
+                        maybe_val_ap(configs, path, epoch, logger, tb_writer)
+                    prune_checkpoints(configs.checkpoints_dir, configs.runtime.saved_fn,
+                                      configs.runtime.keep_checkpoints)
+                barrier(mesh)  # no rank goes on (or resumes) before the checkpoint is whole
     finally:
         if tb_writer is not None:
             tb_writer.close()
@@ -173,18 +248,38 @@ def maybe_val_ap(configs, ckpt_path, epoch, logger, tb_writer):
     return res
 
 
-def validate(val_loader, state, eval_step) -> float:
-    """Sample-weighted mean validation loss over the loader's batches."""
+def _close(iterator) -> None:
+    """Retire a loader's iterator left before its end (its producer thread)."""
+    close = getattr(iterator, "close", None)
+    if close is not None:
+        close()
+
+
+def validate(val_loader, state, eval_step, mesh=None) -> float:
+    """Sample-weighted mean validation loss over the loader's batches. With
+    a mesh of more than one rank each rank holds its share of every global
+    batch and the stats are global: every rank trims its batch to the
+    smallest share of any rank (the global tail then divides by the world,
+    as JAX trims it) and the loop ends when any rank has no frame left."""
+    from sfa3d_tpu_torch.parallel.mesh import min_over_ranks
+
+    world = 1 if mesh is None else mesh.world_size
     total, n = 0.0, 0
-    for batch in val_loader:
+    batches = iter(val_loader)
+    while True:
+        batch = next(batches, None)
+        local = 0 if batch is None else batch["bev"].shape[0] * batch["bev"].shape[1]
+        take = local if mesh is None else min_over_ranks(mesh, local)
+        if take == 0:
+            _close(batches)
+            break
         flat = {
-            "bev": batch["bev"].reshape((-1,) + tuple(batch["bev"].shape[2:])),
-            "targets": {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch["targets"].items()},
+            "bev": batch["bev"].reshape((-1,) + tuple(batch["bev"].shape[2:]))[:take],
+            "targets": {k: v.reshape((-1,) + tuple(v.shape[2:]))[:take] for k, v in batch["targets"].items()},
         }
-        n_samples = flat["bev"].shape[0]
         stats = eval_step(state, flat)
-        total += float(stats["total_loss"]) * n_samples
-        n += n_samples
+        total += float(stats["total_loss"]) * take * world
+        n += take * world
     return total / max(1, n)
 
 

@@ -4,9 +4,12 @@ with the reference flag names and defaults).
 
 Flags that name work this port has not taken yet are parsed as in the JAX
 package and then refused by `refuse_unported` with a NotImplementedError,
-never ignored: `--mesh_shape` above 1 (data parallelism),
-`--imagenet_pretrained`, the JAX tooling flags `--profile_dir` and
-`--compilation_cache`, and an `--arch` other than fpn_resnet_*. `--val_ap`
+never ignored: `--imagenet_pretrained`, the JAX tooling flags
+`--profile_dir` and `--compilation_cache`, and an `--arch` other than
+fpn_resnet_*. `--mesh_shape N` trains data-parallel over N ranks
+(`parallel/mesh.py`; None, as in JAX, takes every device: the visible GPUs
+on cuda, one rank on the CPU); on cuda without SFA3D_DIST a mesh larger
+than the visible GPUs is refused (NCCL refuses two ranks on one GPU). `--val_ap`
 runs the KITTI AP evaluator (`cli/eval.py`) at each checkpoint (with
 `--dataset argoverse` it warns and skips, as the JAX trainer does).
 
@@ -191,13 +194,32 @@ def _build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _visible_gpus() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def mesh_size(cfg: TrainConfig) -> int:
+    """The ranks --mesh_shape asks for: the number, or (None, JAX's "every
+    device") the visible GPUs on cuda and one rank on the CPU."""
+    n = cfg.runtime.mesh_shape
+    if n is not None:
+        return n
+    return 1 if cfg.runtime.platform == "cpu" else max(1, _visible_gpus())
+
+
 def refuse_unported(cfg: TrainConfig) -> TrainConfig:
     """Raise NotImplementedError for a setting whose work the port has not
     taken yet; returns `cfg` otherwise."""
     rt = cfg.runtime
+    if rt.mesh_shape is not None and rt.mesh_shape < 1:
+        raise ValueError(f"--mesh_shape {rt.mesh_shape}: a mesh needs at least one device")
     refused = [
-        (rt.mesh_shape is not None and rt.mesh_shape > 1,
-         f"--mesh_shape {rt.mesh_shape}: data parallelism is not ported yet (one device only)"),
+        (rt.mesh_shape is not None and rt.mesh_shape > 1 and rt.platform != "cpu"
+         and not os.environ.get("SFA3D_DIST") and rt.mesh_shape > _visible_gpus(),
+         f"--mesh_shape {rt.mesh_shape}: a mesh larger than the {_visible_gpus()} visible GPUs "
+         "(NCCL refuses two ranks on one GPU; --platform cpu runs CPU ranks)"),
         (cfg.model.imagenet_pretrained, "--imagenet_pretrained: ImageNet backbone init is not ported yet"),
         (rt.profile_dir is not None, "--profile_dir: a jax.profiler trace has no counterpart in the port"),
         (rt.compilation_cache is not None,

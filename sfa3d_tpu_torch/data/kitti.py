@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from sfa3d_tpu_torch import native
 from sfa3d_tpu_torch.config import kitti as cnf
 from sfa3d_tpu_torch.geometry.calibration import KittiCalibration
 from sfa3d_tpu_torch.geometry.transforms import camera_to_lidar_box
@@ -187,8 +188,14 @@ class KittiDataset:
         return filter_and_pad_points(points, max_points=self.max_points)
 
     def _read_points_filtered(self, sample_id: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Read + range filter + pad in numpy (the JAX package's fused
-        native reader, native/preproc.cpp, is not ported)."""
+        """Read + range filter + pad when no augmentation needs the raw
+        cloud: the native fused read (`native/preproc.cpp` streams the .bin;
+        the raw scan is never materialised), or with SFA3D_TPU_NO_NATIVE the
+        numpy read and its filter."""
+        native.note_path()
+        if native.enabled():
+            path = os.path.join(self.lidar_dir, f"{sample_id:06d}.bin")
+            return native.read_velodyne_filtered(path, self.max_points, cnf.boundary)
         return self._pad_points(self.get_lidar(sample_id))
 
     def _pad_labels(self, labels: np.ndarray) -> Tuple[np.ndarray, np.int32]:
@@ -257,10 +264,10 @@ class KittiDataset:
 class DemoKittiDataset:
     """A KITTI raw drive (image_02/data, velodyne_points/data, 10-digit ids)
     for the `demo` and `track` CLIs. Item i is (points (max_points, 4),
-    valid (max_points,), camera image path): the scan filtered in numpy to
-    the union of the front and rear detection windows, then padded, so a
-    raw ~120k-point scan is never truncated by azimuth (the JAX package's
-    native reader is not ported)."""
+    valid (max_points,), camera image path): the scan filtered to the union
+    of the front and rear detection windows, then padded (the native fused
+    read, or numpy with SFA3D_TPU_NO_NATIVE), so a raw ~120k-point scan is
+    never truncated by azimuth."""
 
     def __init__(self, root_dir: str, max_points: int = cnf.MAX_POINTS):
         self.image_dir = os.path.join(root_dir, "image_02", "data")
@@ -278,6 +285,10 @@ class DemoKittiDataset:
         lidar_path = os.path.join(self.lidar_dir, f"{sid:010d}.bin")
         img_path = os.path.join(self.image_dir, f"{sid:010d}.png")
         union = dict(cnf.boundary, minX=cnf.boundary_back["minX"])
-        points = np.fromfile(lidar_path, dtype=np.float32).reshape(-1, 4)
-        out, valid = filter_and_pad_points(points, max_points=self.max_points, boundary=union)
+        native.note_path()
+        if native.enabled():  # the fused native read
+            out, valid = native.read_velodyne_filtered(lidar_path, self.max_points, union)
+        else:
+            points = np.fromfile(lidar_path, dtype=np.float32).reshape(-1, 4)
+            out, valid = filter_and_pad_points(points, max_points=self.max_points, boundary=union)
         return out, valid, img_path

@@ -9,7 +9,10 @@ target: it runs under `torch.no_grad()` (JAX's `stop_gradient`). Ties keep
 XLA's order: the top-k is a stable descending sort (lower anchor index
 first) and each argmax takes the first maximum. The loss computes in
 float32, as the JAX loss casts the head outputs to float32; float64 head
-outputs stay float64.
+outputs stay float64. Under a data-parallel group
+(`collectives.py::data_parallel`) the normalizer max(sum of the target
+scores, 1) takes the global sum (one all-reduce), so each rank's loss is
+its local share of the global loss.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from sfa3d_tpu_torch.models.yolov8 import REG_MAX, STRIDES, dfl_expectation
+from sfa3d_tpu_torch.collectives import all_reduce_sum
 
 BOX_GAIN = 7.5
 CLS_GAIN = 0.5
@@ -185,7 +189,7 @@ def yolo_loss(
     )
     fg = assign["fg_mask"]
     target_scores = assign["target_scores"]
-    tss = torch.clamp_min(target_scores.sum(), 1.0)
+    tss = torch.clamp_min(all_reduce_sum(target_scores.sum()), 1.0)  # global under a group
 
     loss_cls = sigmoid_bce(cls_logits, target_scores).sum() / tss
 

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sfa3d_tpu_torch.collectives import active_group, all_reduce_sum
+
 BN_EPS = 1e-5
 FLAX_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): running = 0.9 * running + 0.1 * batch
 
@@ -32,7 +34,10 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     and updates the running statistics in the same pass, with torch's
     momentum 0.1 = 1 - flax's, into C-element copies: the mean is then
     flax's, and the variance is brought from the unbiased to the biased one
-    with the old running_var. Eval mode is nn.BatchNorm2d's. The state_dict keys
+    with the old running_var. Under a data-parallel group
+    (`collectives.py::data_parallel`) the statistics are the global
+    batch's, taken in flax's order (`_global_forward`). Eval mode is
+    nn.BatchNorm2d's. The state_dict keys
     (weight, bias, running_mean, running_var, num_batches_tracked) are
     nn.BatchNorm2d's. `eps` and `momentum` are flax's (YOLOv8: 1e-3, 0.97)."""
 
@@ -43,6 +48,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = active_group()
+        if group is not None:
+            return self._global_forward(x, group)
         n = x.numel() // x.shape[1]  # values per channel
         # copies, since autograd keeps what F.batch_norm was given
         mean, var = self.running_mean.clone(), self.running_var.clone()
@@ -54,6 +62,30 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(old + (var - old) * ((n - 1) / n))
             self.num_batches_tracked.add_(1)
         return out
+
+    def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
+        """Training mode under a data-parallel group (`parallel/mesh.py`), in
+        flax's order: the per-channel sum, sum of squares and count summed
+        over the ranks in one differentiable all-reduce (the gradient flows
+        through the global statistics, as through XLA's psum), mean and
+        biased variance E[x^2] - E[x]^2 clipped at 0, y = (x - mean) *
+        (rsqrt(var + eps) * weight) + bias, and the running statistics
+        updated with flax's momentum and the biased variance. Reductions run
+        in at least float32; y takes x's dtype."""
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = xs.shape[1]
+        count = torch.full((1,), xs.numel() // c, dtype=xs.dtype, device=xs.device)
+        sums = all_reduce_sum(torch.cat([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3)), count]), group)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp_min(sums[c:2 * c] / sums[2 * c] - mean * mean, 0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xs.dtype)
+        y = (xs - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias.to(xs.dtype)[None, :, None, None]
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.detach())
+            self.running_var.copy_(m * self.running_var + (1 - m) * var.detach())
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def _bn(channels: int) -> FlaxBatchNorm2d:

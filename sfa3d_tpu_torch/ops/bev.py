@@ -45,6 +45,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from sfa3d_tpu_torch import native
 from sfa3d_tpu_torch.config import kitti as cnf
 from sfa3d_tpu_torch.device import device_constant
 from sfa3d_tpu_torch.ops.bev_counts import _f32_reciprocal, argoverse_raster_reduce, bev_raster_reduce
@@ -57,7 +58,8 @@ _BOUND = (
 
 
 def warn_point_overflow(n_in_range: int, max_points: int, stacklevel: int = 3) -> None:
-    """Truncation must never be silent. stacklevel=3 points at the caller of
+    """Truncation must never be silent. The one warning site of the native
+    pass and its numpy twin, whose stacklevel points at the caller of
     filter_and_pad_points. The message is the JAX package's."""
     if n_in_range > max_points:
         warnings.warn(
@@ -76,8 +78,23 @@ def filter_and_pad_points(
     """Host side: range-filter a ragged (N, 4) scan and pad/truncate it to a
     fixed (max_points, 4) float32 array plus a (max_points,) bool mask.
     z is NOT shifted: `points_to_bev` applies the shift itself. Warns when
-    in-range points are dropped."""
+    in-range points are dropped.
+
+    Runs the port's native pass (`native/preproc.cpp`, built at first use;
+    a failed build raises), or its numpy twin `_filter_and_pad_numpy` when
+    SFA3D_TPU_NO_NATIVE is set. The two are bit-equal
+    (tests/test_torch_native.py)."""
     points = np.asarray(points, dtype=np.float32)
+    native.note_path()
+    if native.enabled():
+        return native.filter_pad_points(points, max_points, boundary)
+    return _filter_and_pad_numpy(points, max_points, boundary)
+
+
+def _filter_and_pad_numpy(
+    points: np.ndarray, max_points: int, boundary: Dict[str, float]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The numpy twin of the native pass (and its parity oracle)."""
     mask = (
         (points[:, 0] >= boundary["minX"])
         & (points[:, 0] <= boundary["maxX"])
@@ -87,7 +104,7 @@ def filter_and_pad_points(
         & (points[:, 2] <= boundary["maxZ"])
     )
     in_range = points[mask]
-    warn_point_overflow(len(in_range), max_points)
+    warn_point_overflow(len(in_range), max_points, stacklevel=4)
     kept = in_range[:max_points]
     out = np.zeros((max_points, 4), dtype=np.float32)
     out[: len(kept)] = kept

@@ -1,5 +1,6 @@
-"""The YOLOv8 training epoch and eval pass on one device, the port of
-`sfa3d_tpu/parallel/yolo_step.py` (data parallelism is not ported yet).
+"""The YOLOv8 training epoch and eval pass, the port of
+`sfa3d_tpu/parallel/yolo_step.py`, on one device or data-parallel over the
+ranks of a `parallel/mesh.py` mesh.
 
 The whole split lives on the device as uint8 (`data/yolo2d.py` layout) and
 an epoch is S optimizer steps over an (S, B) index: each step gathers its
@@ -13,6 +14,16 @@ parameter EMA then advances in the JAX YOLO step's form
 e * d + p * (1 - d), d = ema_decay_at(step + 1) in float32. Each step's
 parts are profiler ranges: yolo.forward_loss, yolo.backward, yolo.adamw,
 yolo.ema.
+
+With a mesh of more than one rank (`mesh=`), as under JAX's mesh, every
+rank holds the whole split and takes the same global (S, B) index and
+hflip draws; each step, rank r takes columns [r * B / world, (r + 1) * B
+/ world) of the step's row, runs forward and loss inside
+`data_parallel(mesh)` (global BatchNorm statistics, the global
+target-score normalizer), and the gradients are summed over the ranks
+before the AdamW update (`mesh.py::all_reduce_grads`). The per-step losses
+are all-reduced once at the end of the epoch, so the metrics are the
+global batch's on every rank.
 
 The eval pass runs the model in eval mode (optionally with other
 parameters, e.g. the EMA's, over the live BatchNorm statistics),
@@ -30,7 +41,9 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from sfa3d_tpu_torch.collectives import all_reduce_sum, data_parallel
 from sfa3d_tpu_torch.losses.yolo_loss import yolo_loss
+from sfa3d_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 from sfa3d_tpu_torch.parallel.train_step import TrainState, _check_device, create_train_state, ema_decay_at
 
 __all__ = ["TrainState", "create_train_state", "make_yolo_epoch_fn", "make_yolo_eval_fn", "to_unit_float"]
@@ -64,7 +77,7 @@ def _levels_nhwc(model: nn.Module, imgs_nhwc: torch.Tensor, params=None):
 
 
 def make_yolo_epoch_fn(model: nn.Module, tx, imgsz, ema_decay: float = 0.0, ema_tau: float = 2000.0,
-                       hflip_prob: float = 0.5, device=None) -> Callable:
+                       hflip_prob: float = 0.5, device=None, mesh: Optional[Mesh] = None) -> Callable:
     """-> epoch_fn(state, data, idx, flips=None, generator=None) ->
     (state, metrics), run in place on the state's model and optimizer, on
     `device` (default cuda; raises without a GPU unless device="cpu").
@@ -75,8 +88,10 @@ def make_yolo_epoch_fn(model: nn.Module, tx, imgsz, ema_decay: float = 0.0, ema_
     of the frames to mirror; without it they are drawn as
     `torch.rand((S, B), generator=generator) < hflip_prob`. metrics: the
     epoch means of total / box / cls / dfl loss and num_fg, 0-dim tensors
-    on the device."""
-    _check_device(model, device)
+    on the device. With `mesh`, idx and flips are the global ones (the
+    same on every rank) and the rank takes its share of each row."""
+    _check_device(model, device, mesh)
+    synced = mesh is not None and mesh.synced
 
     def epoch_fn(state: TrainState, data: Dict[str, torch.Tensor], idx, flips=None,
                  generator: Optional[torch.Generator] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -90,18 +105,25 @@ def make_yolo_epoch_fn(model: nn.Module, tx, imgsz, ema_decay: float = 0.0, ema_
         flips = torch.as_tensor(flips, device=dev)
         if flips.shape != idx.shape:
             raise ValueError(f"flips {tuple(flips.shape)} do not match idx {tuple(idx.shape)}")
+        if synced:  # this rank's columns of the global index and draws
+            if idx.shape[1] % mesh.world_size:
+                raise ValueError(f"a per-step batch of {idx.shape[1]} does not divide over {mesh.world_size} ranks")
+            k = idx.shape[1] // mesh.world_size
+            idx, flips = idx[:, mesh.rank * k:(mesh.rank + 1) * k], flips[:, mesh.rank * k:(mesh.rank + 1) * k]
         dtype = next(m.parameters()).dtype
         m.train()
         per_step = []
         for s in range(idx.shape[0]):
             ix = idx[s]
             state.optimizer.zero_grad(set_to_none=True)
-            with record_function("yolo.forward_loss"):
+            with record_function("yolo.forward_loss"), data_parallel(mesh):
                 imgs, boxes = _flip_batch(to_unit_float(data["images"][ix]), data["boxes"][ix], flips[s])
                 losses = yolo_loss(_levels_nhwc(m, imgs.to(dtype)), boxes, data["labels"][ix], data["mask"][ix],
                                    imgsz=imgsz)
             with record_function("yolo.backward"):
                 losses["total"].backward()
+                if synced:
+                    all_reduce_grads(m.parameters(), mesh)
             with record_function("yolo.adamw"):
                 state.tx.apply_schedule(state.optimizer, state.step)
                 state.optimizer.step()
@@ -115,7 +137,10 @@ def make_yolo_epoch_fn(model: nn.Module, tx, imgsz, ema_decay: float = 0.0, ema_
                         e.copy_(e * keep + m.get_parameter(k).detach().to(e.dtype) * take)
             state.step += 1
             per_step.append(torch.stack([losses[k].detach().to(torch.float64) for k in LOSS_KEYS]))
-        means = torch.stack(per_step).mean(0)
+        table = torch.stack(per_step)
+        if synced:  # the per-rank shares -> the global batch's losses
+            table = all_reduce_sum(table, mesh.process_group)
+        means = table.mean(0)
         return state, {k: means[i] for i, k in enumerate(LOSS_KEYS)}
 
     return epoch_fn

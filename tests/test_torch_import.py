@@ -39,7 +39,7 @@ def test_port_imports_without_jax():
                  "runtime.export", "cli.export", "cli.__main__", "viz.raster", "viz.hershey", "viz.draw",
                  "viz.bev_projection", "cli.test", "cli.fuse", "data.jpeg", "data.avi", "cli.demo", "cli.track",
                  "viz.kfpn_viz", "slam.pnp", "slam.epipolar", "slam.calib_sources", "slam.orb",
-                 "slam.stereo", "cli.slam", "cli.stereo_calib"):
+                 "slam.stereo", "cli.slam", "cli.stereo_calib", "native", "collectives", "parallel.mesh"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

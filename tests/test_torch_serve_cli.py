@@ -22,7 +22,7 @@ import torch
 
 from sfa3d_tpu.runtime.tracking_service import TrackingSessions as JaxSessions
 from sfa3d_tpu_torch.cli import serve
-from sfa3d_tpu_torch.data.png import write_png_rgb
+from sfa3d_tpu_torch.data.png import read_image_bgr, write_image_bgr, write_png_rgb
 from sfa3d_tpu_torch.data.synthetic import synthetic_scene
 from sfa3d_tpu_torch.detector import Detector, FusedDetector
 from sfa3d_tpu_torch.geometry.calibration import KittiCalibration
@@ -321,7 +321,7 @@ def test_serve_fused_reads_png_frames(checkpoint, scans, tmp_path):
     requests = [{"id": 1, "lidar": scans[0][0], "image": str(png)},
                 {"id": 2, "lidar": scans[0][0], "image": str(tmp_path / "frame.jpg")}]
     replies, _ = _run_stdio(["--pretrained_path", checkpoint, "--fused"], requests)
-    assert "PNG" in replies[1]["error"]
+    assert str(tmp_path / "frame.jpg") in replies[1]["error"]
     fd = FusedDetector(checkpoint=checkpoint, device="cpu")
     want = fd.detect(scans[0][1], image, KittiCalibration(None))
     got = replies[0]
@@ -331,6 +331,33 @@ def test_serve_fused_reads_png_frames(checkpoint, scans, tmp_path):
     np.testing.assert_allclose(got["fused"]["scores"], np.round(want["scores"], 6), rtol=0, atol=1e-6)
     np.testing.assert_allclose(got["boxes_3d"], np.round(want["boxes_3d"], 6), rtol=0, atol=1e-6)
     assert len(got["boxes_3d"]) > 0
+
+
+def test_serve_fused_reads_jpeg_frames(checkpoint, scans, tmp_path):
+    """A JPEG frame (written by the port's encoder) is answered as
+    FusedDetector answers the decoded pixels; a file that is neither PNG
+    nor JPEG gets an error reply naming it."""
+    rng = np.random.default_rng(4)
+    image = rng.integers(0, 256, (375, 1242, 3), dtype=np.uint8)
+    jpg = tmp_path / "frame.jpg"
+    write_image_bgr(str(jpg), image[:, :, ::-1])
+    (tmp_path / "frame.bmp").write_bytes(b"BM" + bytes(64))
+    requests = [{"id": 1, "lidar": scans[0][0], "image": str(jpg)},
+                {"id": 2, "lidar": scans[0][0], "image": str(tmp_path / "frame.bmp")}]
+    replies, _ = _run_stdio(["--pretrained_path", checkpoint, "--fused"], requests)
+    assert str(tmp_path / "frame.bmp") in replies[1]["error"]
+    assert "detections" not in replies[1] and "fused" not in replies[1]
+    decoded = np.ascontiguousarray(read_image_bgr(str(jpg))[:, :, ::-1])
+    assert 0 < np.abs(decoded.astype(int) - image).max()  # lossy: the reply must use the decoded pixels
+    want = FusedDetector(checkpoint=checkpoint, device="cpu").detect(scans[0][1], decoded, KittiCalibration(None))
+    got = replies[0]
+    assert got["id"] == 1
+    assert got["fused"]["boxes"] == want["boxes"].tolist()
+    assert got["fused"]["classes"] == want["classes"].tolist()
+    assert got["fused"]["source"] == want["source"].tolist()
+    np.testing.assert_allclose(got["fused"]["scores"], np.round(want["scores"], 6), rtol=0, atol=1e-6)
+    assert len(got["boxes_3d"]) > 0
+    np.testing.assert_allclose(got["boxes_3d"], want["boxes_3d"], rtol=0, atol=1e-3)
 
 
 def test_serve_refuses_jax_only_options_and_fused_tracking(checkpoint, tmp_path):
