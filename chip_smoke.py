@@ -1,8 +1,9 @@
-"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths,
-its KFPN and YOLOv8 training paths, its evaluation, the serve CLI with
-per-stream tracking, the test and fuse CLIs, the raw-drive demo and track
-CLIs, and the geometry and SLAM path (RANSAC, ORB, the slam and
-stereo-calib CLIs) on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's LiDAR and camera + LiDAR fusion serving paths
+(in float32 and bfloat16), its KFPN, deconv and YOLOv8 training paths, its
+evaluation, the serve CLI with per-stream tracking, the test and fuse
+CLIs, the raw-drive demo and track CLIs, and the geometry and SLAM path
+(RANSAC, ORB, the slam and stereo-calib CLIs) on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -261,6 +262,25 @@ Phases, each printing one JSON line:
           frame checked). Host ms of ORB per level, the
           match, F-RANSAC, recover_pose, ransac_pnp, and a cli slam frame's
           detection, calibration, fusion, drawing and JPEG write
+  bf16_serve  Detector and FusedDetector(imgsz=(224, 640)) in bfloat16
+          (bfloat16 convolution weights cast once, float32 BatchNorm) and
+          in strict float32, on fused_serve's conditioned weights with
+          boxes of KITTI's sizes (through .pth / .pt files) and its 16
+          requests, at buckets 8 and 1: the raw heads and YOLO levels
+          bfloat16; bev_raster_reduce and each loop kernel launched once a
+          batch; the bf16 detections (LiDAR and the fused 3D branch)
+          matched to the float32 ones at least 0.9 of them, every field's
+          p95 deviation within 3 x the JAX audit's (BF16_AUDIT.json); the
+          fused 2D rows matched at least 0.9; ms a batch in each dtype
+          at buckets 1 and 8, KFPN and YOLOv8n ms at batch 8; one `serve
+          --dtype bfloat16 --fused` request through the CLI
+  train_options  one strict-fp32 resnet_18 (deconv) step card vs CPU
+          under the train phase's tolerances; one epoch of the training
+          CLI with --arch resnet_18 --imagenet_pretrained --imagenet_weights
+          (a stand-in torchvision file the phase writes) --profile_dir: the
+          ImageNet init logged, the weights within Adam's first step of the
+          file's, one raster launch, CUDA kernels in the trace and the
+          key_averages table written, the checkpoint loaded by Detector
 Then the script's total seconds, one {"kernels": [...]} line and, last, the
 {"ok": true, ...} line.
 
@@ -286,7 +306,7 @@ import torch
 
 from sfa3d_tpu_torch import _build
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.detector import Detector, FusedDetector, format_detections
+from sfa3d_tpu_torch.detector import Detector, FusedDetector, format_detections, fused_reply
 from sfa3d_tpu_torch.fusion.batch import _fuse_one, _unletterbox_xywh
 from sfa3d_tpu_torch.fusion.boxes2d import project_boxes_to_image
 from sfa3d_tpu_torch.fusion.nms import _stable_desc_order
@@ -1204,7 +1224,7 @@ def yolo_gate_bias(yolo: torch.nn.Module, image: np.ndarray, canvas=CANVAS) -> f
     return float(np.log(0.25 / 0.75) - (top[-2] + top[-1]).item() / 2)
 
 
-def bump_fused_biases(fd, gate_bias: float) -> None:
+def bump_fused_biases(fd, gate_bias: float, tall_boxes: bool = True) -> None:
     """Random weights that give the fusion stages work: heatmap peaks above
     the threshold, and YOLO boxes of about four strides across (DFL mass on
     bin 2). The YOLO class logits are spread (x1000 on the last class conv,
@@ -1221,13 +1241,15 @@ def bump_fused_biases(fd, gate_bias: float) -> None:
     spans all of it, since two boxes clipped to the same edges give fused
     means of equal integers, which a one-ulp difference in a confidence
     truncates a pixel apart. Such pairs overlap mostly by their x-intervals,
-    and a fair share pass 0.7."""
+    and a fair share pass 0.7. With tall_boxes=False the 3D boxes keep
+    KITTI's sizes (about 1.5 m each way, z near the sensor's)."""
     bump_heatmap_bias(fd.kfpn)
     with torch.no_grad():
         for i in range(3):
             getattr(fd.kfpn, f"fpn{i}_dim")[2].bias += 1.5
-            getattr(fd.kfpn, f"fpn{i}_dim")[2].bias[0] += SFA_HEIGHT_BUMP
-            getattr(fd.kfpn, f"fpn{i}_z_coor")[2].bias += SFA_Z_BUMP
+            if tall_boxes:
+                getattr(fd.kfpn, f"fpn{i}_dim")[2].bias[0] += SFA_HEIGHT_BUMP
+                getattr(fd.kfpn, f"fpn{i}_z_coor")[2].bias += SFA_Z_BUMP
             dfl = fd.yolo.model[22].cv2[i][2].bias.view(4, 16)
             dfl[:, 2] += 4.0
             for side, reach in YOLO_REACH.items():
@@ -1521,18 +1543,19 @@ def _train_batch_from_scenes(seeds, dev, bev_size, hm_size, s):
     return {"bev": bev.reshape(s, b, *bev.shape[1:]), "targets": {k: v.reshape(s, b, *v.shape[1:]) for k, v in tg.items()}}
 
 
-def _train_model(init_sd):
-    """KFPN-18 with the weights `init_sd` (one init_weights draw, which takes
-    seconds on the host, shared by the train phase's models)."""
-    model = create_model("fpn_resnet_18")
+def _train_model(init_sd, arch="fpn_resnet_18"):
+    """The `arch` model (KFPN-18 by default) with the weights `init_sd` (one
+    init_weights draw, which takes seconds on the host, shared by the train
+    phase's models)."""
+    model = create_model(arch)
     model.load_state_dict(init_sd)
     return model
 
 
-def _train_step_parity(optimizer_type, init_sd):
+def _train_step_parity(optimizer_type, init_sd, arch="fpn_resnet_18"):
     """One accumulated step (S = 2, B = 2, 128 x 128 raster) of the same
-    model and batch on the card and on the CPU, strict fp32; returns the
-    measured differences or raises."""
+    `arch` model and batch on the card and on the CPU, strict fp32; returns
+    the measured differences or raises."""
     from sfa3d_tpu_torch.config.train import OptimConfig
     from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
     from sfa3d_tpu_torch.runtime.schedules import create_optimizer
@@ -1544,8 +1567,8 @@ def _train_step_parity(optimizer_type, init_sd):
     gpu_batch = _train_batch_from_scenes(range(40, 44), DEVICE, TRAIN_PARITY_BEV, hm, 2)
     _check_targets(gpu_batch["targets"], cpu_batch["targets"])
     raster_errors(gpu_batch["bev"].flatten(0, 1).cpu(), cpu_batch["bev"].flatten(0, 1))
-    cpu_model = _train_model(init_sd)
-    gpu_model = _train_model(init_sd).to(DEVICE)
+    cpu_model = _train_model(init_sd, arch)
+    gpu_model = _train_model(init_sd, arch).to(DEVICE)
     start = {k: v.detach().clone() for k, v in cpu_model.state_dict().items()}
     out = {}
     for name, model, batch, dev in (("cpu", cpu_model, cpu_batch, "cpu"), ("gpu", gpu_model, gpu_batch, DEVICE)):
@@ -4763,6 +4786,293 @@ def phase_slam(card, tmp_root):
     return launches_by_path
 
 
+# ---------------------------------------------------------------------------
+# bfloat16 inference and the training options
+# ---------------------------------------------------------------------------
+
+BF16_AUDIT = "BF16_AUDIT.json"  # the JAX package's bf16 audit: per-field deviations from float32, trained weights
+BF16_FIELDS = ("x_m", "y_m", "z_m", "h_m", "w_m", "l_m", "yaw_rad", "conf")
+BF16_ENVELOPE_MULT = 3.0  # p95 of a field's bf16 deviation from the card's float32: 3 x the JAX audit's p95
+BF16_MATCH_MIN = 0.9  # float32 detections (and fused rows) matched by a bf16 one
+BF16_ROW_PX = 8  # fused 2D rows: matched by class and source, every coordinate within 8 px
+BF16_LOOPS = ("hard_nms_keep", "soft_nms_gaussian", "greedy_match")
+
+
+def bf16_envelope():
+    """The JAX audit's per-field deviation statistics (BF16_AUDIT.json, in
+    the checkout beside this script): {field: {"p50", "p95", "max"}}."""
+    import os
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), BF16_AUDIT)) as f:
+        dev = json.load(f)["per_field_abs_deviation"]
+    return {k: dev[k] for k in BF16_FIELDS}
+
+
+def bf16_check(what, f32_frames, bf16_frames, envelope):
+    """Each frame's bf16 detections matched to its float32 ones (same class,
+    the nearest centre within 1 m: scripts/torch_bf16_audit.py's
+    match_and_diff). Frames are (boxes_real (K, 8), scores (K,), mask (K,)).
+    Raises below BF16_MATCH_MIN, or where a field's p95 deviation exceeds
+    BF16_ENVELOPE_MULT times the JAX audit's p95. The largest deviations
+    are reported, not held: as in the JAX audit (x 0.337 m, one heatmap
+    cell), a bfloat16 peak can take a neighbouring cell. Returns the
+    statistics."""
+    from scripts.torch_bf16_audit import deviation_stats, match_and_diff
+
+    rows, counts = [], np.zeros(3, np.int64)
+    for (ra, sa, ma), (rb, sb, mb) in zip(f32_frames, bf16_frames):
+        r, c = match_and_diff(ra, sa, ma, rb, sb, mb)
+        rows += r
+        counts += c
+    limit = BF16_ENVELOPE_MULT * np.array([envelope[f]["p95"] for f in BF16_FIELDS])
+    rate = counts[2] / max(1, counts[0], counts[1])
+    if counts[2] == 0 or rate < BF16_MATCH_MIN:
+        raise AssertionError(f"{what}: {counts[2]} of {counts[0]} float32 detections matched in bfloat16")
+    stats = deviation_stats(rows)
+    over = {f: [stats[f]["p95"], float(lim)] for f, lim in zip(BF16_FIELDS, limit) if stats[f]["p95"] > lim}
+    if over:
+        raise AssertionError(f"{what}: bfloat16 p95 deviations beyond the envelope: {over}")
+    return {"detections_f32": int(counts[0]), "detections_bf16": int(counts[1]), "matched": int(counts[2]),
+            "match_rate": float(rate), "deviation": stats, "p95_limit": dict(zip(BF16_FIELDS, limit.tolist()))}
+
+
+def fused_row_match(f32_out, bf16_out):
+    """The fused 2D rows of each frame, bf16 against float32: matched by
+    class and source with every coordinate within BF16_ROW_PX -> (rows
+    f32, rows bf16, matched, largest coordinate and score deviation)."""
+    n_a = n_b = matched = 0
+    px = score = 0.0
+    for f in range(f32_out["valid"].shape[0]):
+        a, b = reply_rows(fused_reply(f32_out, f)), reply_rows(fused_reply(bf16_out, f))
+        n_a, n_b = n_a + len(a), n_b + len(b)
+        used = np.zeros(len(b), bool)
+        for row in a:
+            if not len(b):
+                break
+            d = np.abs(b[:, :4] - row[:4]).max(1)
+            d = np.where(used | (b[:, 4] != row[4]) | (b[:, 5] != row[5]), np.inf, d)
+            j = int(np.argmin(d))
+            if d[j] <= BF16_ROW_PX:
+                used[j] = True
+                matched += 1
+                px, score = max(px, float(d[j])), max(score, abs(float(b[j, 6] - row[6])))
+    return {"rows_f32": n_a, "rows_bf16": n_b, "matched": matched, "match_rate": matched / max(1, n_a, n_b),
+            "max_coordinate_px": px, "max_score": score}
+
+
+def phase_bf16_serve(card, tmp_root):
+    """Detector and FusedDetector in bfloat16 (bfloat16 convolution
+    weights, float32 BatchNorm, the raster and every stage after the
+    networks float32) on the card, on fused_serve's conditioned weights
+    with boxes of KITTI's sizes (through .pth / .pt files) and its 16
+    requests, in batches of 8 and 1: detections held to
+    the card's strict float32 run (bf16_check; the fused 2D rows' match
+    rate at least BF16_MATCH_MIN), the raw heads and YOLO levels bfloat16, one launch of
+    bev_raster_reduce (and of each loop kernel, fused) a batch; ms a batch
+    in each dtype at buckets 1 and 8, KFPN and YOLOv8n device ms at batch
+    8; one `serve --dtype bfloat16 --fused` request through the CLI."""
+    import os
+
+    from sfa3d_tpu_torch.data.png import write_png_rgb
+
+    envelope = bf16_envelope()
+    reqs = fused_requests(16)
+    base = FusedDetector(imgsz=CANVAS, device=DEVICE, seed=SEED)
+    bump_fused_biases(base, yolo_gate_bias(base.yolo, reqs[0][1]), tall_boxes=False)
+    kfpn_path, yolo_path = os.path.join(tmp_root, "bf16_kfpn.pth"), os.path.join(tmp_root, "bf16_yolov8n.pt")
+    torch.save(base.kfpn.state_dict(), kfpn_path)
+    torch.save({"model": base.yolo.state_dict()}, yolo_path)
+    dtypes = ("float32", "bfloat16")
+    fds = {dt: FusedDetector(checkpoint=kfpn_path, yolo_checkpoint=yolo_path, imgsz=CANVAS, device=DEVICE,
+                             dtype=dt) for dt in dtypes}
+    dets = {dt: Detector(checkpoint=kfpn_path, device=DEVICE, dtype=dt) for dt in dtypes}
+    prepared = []
+    for points, image, calib in reqs:
+        pts, valid = bev_ops.filter_and_pad_points(points, N)
+        img, r, pad = letterbox(image, CANVAS)
+        prepared.append((pts, valid, img, calib.V2C.astype(np.float32), calib.R0.astype(np.float32),
+                         calib.P2.astype(np.float32), np.float32(IMG_HW), np.float32(r), np.float32(pad)))
+    batches = [[np.stack(a) for a in zip(*prepared[i:i + 8])] for i in range(0, len(prepared), 8)]
+
+    # the networks run in bfloat16: the raw heads and YOLO levels of a bf16 batch
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, args, out: seen.append(out))
+             for m in (fds["bfloat16"].kfpn, fds["bfloat16"].yolo, dets["bfloat16"].model)]
+    counted = [bev_raster_reduce, *(getattr(fusion_loops, k) for k in BF16_LOOPS)]
+    try:
+        outs = {dt: {"lidar": [], "fused": []} for dt in dtypes}
+        launches = {}
+        for dt in dtypes:
+            for bucket in (8, 1):
+                for fn in counted:
+                    fn.launches = 0
+                got = ([fds[dt].run_batch(*batch) for batch in batches] if bucket == 8
+                       else [fds[dt].run_batch(*[a[i:i + 1] for a in batch]) for batch in batches for i in range(8)])
+                fused_l = {fn.__name__: fn.launches for fn in counted}
+                for fn in counted:
+                    fn.launches = 0
+                lidar = ([dets[dt].detect_batch(b[0], b[1]) for b in batches] if bucket == 8
+                         else [dets[dt].detect_batch(b[0][i:i + 1], b[1][i:i + 1]) for b in batches for i in range(8)])
+                lidar_l = bev_raster_reduce.launches
+                n = len(got)
+                if any(v != n for v in fused_l.values()) or lidar_l != n:
+                    raise AssertionError(f"{dt} bucket {bucket}: launches {fused_l}, LiDAR raster {lidar_l} "
+                                         f"for {n} batches")
+                launches[f"{dt}_bucket{bucket}"] = {"batches": n, "fused": fused_l, "lidar_raster": lidar_l}
+                if bucket == 8:
+                    outs[dt]["fused"], outs[dt]["lidar"] = got, lidar
+    finally:
+        for h in hooks:
+            h.remove()
+    head_dtypes = sorted({str(t.dtype) for out in seen for t in _leaves(out)})
+    if head_dtypes != ["torch.bfloat16"]:
+        raise AssertionError(f"the bfloat16 networks returned {head_dtypes}")
+
+    def frames(outs_list, kind):
+        if kind == "lidar":
+            return [(o["boxes_real"][i], o["detections"][i, :, 0], o["mask"][i])
+                    for o in outs_list for i in range(o["mask"].shape[0])]
+        return [(o["boxes_real"][i], np.zeros(o["mask_3d"].shape[1], np.float32), o["mask_3d"][i])
+                for o in outs_list for i in range(o["mask_3d"].shape[0])]
+
+    lidar_cmp = bf16_check("LiDAR Detector", frames(outs["float32"]["lidar"], "lidar"),
+                           frames(outs["bfloat16"]["lidar"], "lidar"), envelope)
+    fused3d_cmp = bf16_check("FusedDetector 3D branch", frames(outs["float32"]["fused"], "fused"),
+                             frames(outs["bfloat16"]["fused"], "fused"), envelope)
+    rows = [fused_row_match(a, b) for a, b in zip(outs["float32"]["fused"], outs["bfloat16"]["fused"])]
+    rows = {k: (max if k.startswith("max") else sum)(r[k] for r in rows) for k in rows[0] if k != "match_rate"}
+    rows["match_rate"] = rows["matched"] / max(1, rows["rows_f32"], rows["rows_bf16"])
+    if not rows["rows_f32"] or rows["match_rate"] < BF16_MATCH_MIN:
+        raise AssertionError(f"fused rows, bfloat16 against float32: {rows}")
+
+    times = {}
+    batch8 = batches[0]
+    for dt in dtypes:
+        times[dt] = {f"fused_bucket{b}_ms": host_ms(lambda: fds[dt].run_batch(*[a[:b] for a in batch8]))
+                     for b in (1, 8)}
+        times[dt].update({f"lidar_bucket{b}_ms": host_ms(lambda: dets[dt].detect_batch(batch8[0][:b], batch8[1][:b]))
+                          for b in (1, 8)})
+        with torch.inference_mode():
+            bev = bev_ops.points_to_bev_nchw(torch.from_numpy(batch8[0]).to(DEVICE),
+                                             torch.from_numpy(batch8[1]).to(DEVICE))
+            images = torch.from_numpy(batch8[2]).to(DEVICE)
+            kfpn, yolo = fds[dt].kfpn, fds[dt].yolo
+            times[dt]["kfpn_batch8_ms"] = cuda_ms(lambda: _heads_nhwc(kfpn, bev))
+            times[dt]["yolo_batch8_ms"] = cuda_ms(lambda: yolo(images.permute(0, 3, 1, 2)))
+    speedup = {k: times["float32"][k] / times["bfloat16"][k] for k in times["float32"]}
+
+    # one serve --dtype bfloat16 --fused request through the CLI, on these weights
+    scan_path, image_path = os.path.join(tmp_root, "bf16_000000.bin"), os.path.join(tmp_root, "bf16_000000.png")
+    reqs[0][0].astype(np.float32).tofile(scan_path)
+    write_png_rgb(image_path, reqs[0][1])
+    for fn in counted:
+        fn.launches = 0
+    replies, stats, cli_s = run_serve_cli(
+        ["--dtype", "bfloat16", "--fused", "--pretrained_path", kfpn_path, "--yolo_checkpoint", yolo_path],
+        [{"id": 1, "lidar": scan_path, "image": image_path}])
+    cli_l = {fn.__name__: fn.launches for fn in counted}
+    if (len(replies) != 1 or "fused" not in replies[0] or stats["served"] != 1
+            or any(v != stats["batches"] for v in cli_l.values())):
+        raise AssertionError(f"serve --dtype bfloat16 --fused: {replies} {stats} launches {cli_l}")
+    if not (replies[0]["fused"]["boxes"] and replies[0]["boxes_3d"]):
+        raise AssertionError(f"serve --dtype bfloat16 --fused answered nothing: {replies[0]}")
+    emit({"phase": "bf16_serve", "requests": len(reqs), "canvas": list(CANVAS), "head_dtypes": head_dtypes,
+          "tf32": [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32],
+          "lidar_vs_float32": lidar_cmp, "fused_3d_vs_float32": fused3d_cmp, "fused_rows_vs_float32": rows,
+          "jax_audit_envelope": envelope, "launches": launches, "times": times,
+          "float32_over_bfloat16": speedup, "serve_cli": {"seconds": cli_s, "stats": stats, "launches": cli_l,
+                                                          "rows": len(replies[0]["fused"]["boxes"]),
+                                                          "boxes_3d": len(replies[0]["boxes_3d"])},
+          "card": card["nvidia_smi"]})
+    bf16 = [launches["bfloat16_bucket8"], launches["bfloat16_bucket1"]]
+    return {"lidar": sum(r["lidar_raster"] for r in bf16),
+            "fused": {k: sum(r["fused"][k] for r in bf16) for k in cli_l}, "serve_cli": cli_l}
+
+
+def imagenet_stand_in(path):
+    """A torchvision-layout resnet18 .pth: the port's ResNet-18 backbone of a
+    seeded init (PoseResNet and torchvision share the keys) plus fc.*; the
+    check's own file, nothing downloaded. Returns its state_dict."""
+    from sfa3d_tpu_torch.models.port import BACKBONE_PREFIXES
+
+    model = create_model("resnet_18").init_weights(torch.Generator().manual_seed(SEED + 11))
+    sd = {k: v.clone() for k, v in model.state_dict().items()
+          if k.startswith(BACKBONE_PREFIXES) and not k.endswith("num_batches_tracked")}
+    g = torch.Generator().manual_seed(SEED + 12)
+    for k in sd:
+        if k.endswith("running_mean"):
+            sd[k] = 0.1 * torch.randn(sd[k].shape, generator=g)
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(sd[k].shape, generator=g)
+    sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512, generator=g), torch.zeros(1000)
+    torch.save(sd, path)
+    return sd
+
+
+def phase_train_options(card, tmp_root, root):
+    """The training options of slice 12 on the card: (a) one strict-fp32
+    accumulated resnet_18 (deconv) step card vs CPU (S = 2 x B = 2, 128 x
+    128, SGD) under the train phase's tolerances; (b) one epoch of the
+    training CLI, --arch resnet_18 --imagenet_pretrained --imagenet_weights
+    <a stand-in file> --profile_dir, one batch of 16 frames in the bfloat16
+    default: the log names the ImageNet init, the conv weights lie within
+    Adam's first step of the file's, one raster launch, the trace holds
+    CUDA kernels, the key_averages table is written, Detector loads the
+    checkpoint."""
+    import os
+
+    from sfa3d_tpu_torch.cli import train as train_cli
+
+    init_sd = create_model("resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    torch.backends.cudnn.deterministic = True
+    try:
+        parity = _train_step_parity("sgd", init_sd, arch="resnet_18")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    weights = os.path.join(tmp_root, "resnet18-standin.pth")
+    file_sd = imagenet_stand_in(weights)
+    run, prof = os.path.join(tmp_root, "options"), os.path.join(tmp_root, "options_profile")
+    lr = 1e-3
+    bev_raster_reduce.launches = 0
+    t0 = time.perf_counter()
+    train_cli.main(["--dataset_dir", root, "--root-dir", run, "--arch", "resnet_18", "--saved_fn", "deconv",
+                    "--num_epochs", "1", "--checkpoint_freq", "1", "--no-val", "--num_samples", "16",
+                    "--batch_size", "16", "--effective_batch", "16", "--lr", str(lr), "--seed", str(SEED),
+                    "--imagenet_pretrained", "--imagenet_weights", weights, "--profile_dir", prof])
+    cli_s = time.perf_counter() - t0
+    cli_launches = bev_raster_reduce.launches
+    if cli_launches != 1:
+        raise AssertionError(f"the deconv CLI epoch launched the raster {cli_launches} times for 1 batch")
+    log = open(os.path.join(run, "logs", "deconv", "logger_deconv.txt")).read()
+    if "initialized backbone from ImageNet resnet18 weights" not in log:
+        raise AssertionError("the training log does not name the ImageNet init")
+    ckpt = os.path.join(run, "checkpoints", "deconv", "Model_deconv_epoch_1.pth")
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
+    moved = {k: (sd[k] - file_sd[k]).abs().max().item()
+             for k in ("conv1.weight", "layer2.0.downsample.0.weight", "layer4.1.conv2.weight")}
+    if max(moved.values()) > 1.01 * lr:
+        raise AssertionError(f"ImageNet weights moved beyond Adam's first step: {moved}")
+    Detector(arch="resnet_18", checkpoint=ckpt, device=DEVICE)
+    with open(os.path.join(prof, "trace_rank0.json")) as f:
+        trace = json.load(f)
+    trace_bytes = os.path.getsize(os.path.join(prof, "trace_rank0.json"))
+    kernels = [e for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"]
+    table = open(os.path.join(prof, "key_averages_rank0.txt")).read()
+    if not kernels or "Self CUDA" not in table:
+        raise AssertionError(f"the profile holds {len(kernels)} CUDA kernel events; table header "
+                             f"{table.splitlines()[:2]}")
+    del trace
+
+    emit({"phase": "train_options", "deconv_step_parity": {"bev": list(TRAIN_PARITY_BEV), "S": 2, "B": 2,
+                                                          "sgd": parity},
+          "cli": {"seconds": cli_s, "raster_launches": cli_launches, "imagenet_weights_moved": moved,
+                  "trace_bytes": trace_bytes, "trace_kernel_events": len(kernels),
+                  "key_averages_lines": len(table.splitlines())},
+          "card": card["nvidia_smi"]})
+    return cli_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -4793,6 +5103,8 @@ def main() -> int:
         viz_launches = phase_viz_cli(card, tmp_root)
         drive_launches = phase_drive_cli(card, tmp_root)
         slam_launches = phase_slam(card, tmp_root)
+        bf16_launches = phase_bf16_serve(card, tmp_root)
+        options_launches = phase_train_options(card, tmp_root, root)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path
@@ -4815,6 +5127,10 @@ def main() -> int:
         raster_rec["launches_by_path"][path] = launches["bev_raster_reduce"]
     for path, launches in slam_launches.items():
         raster_rec["launches_by_path"][path] = launches["bev_raster_reduce"]
+    raster_rec["launches_by_path"]["bf16_serve_lidar"] = bf16_launches["lidar"]
+    raster_rec["launches_by_path"]["bf16_serve_fused"] = bf16_launches["fused"]["bev_raster_reduce"]
+    raster_rec["launches_by_path"]["bf16_serve_cli"] = bf16_launches["serve_cli"]["bev_raster_reduce"]
+    raster_rec["launches_by_path"]["train_options_cli"] = options_launches
     raster_rec["launches_per_kitti_eval_frame"] = kitti_launches / KITTI_EVAL_FRAMES
     nms_rec = next(rec for rec in loop_recs if rec["name"] == "hard_nms_keep")
     nms_rec["launches_by_path"] = {"fused_serve": fused["hard_nms_keep"], "yolo_eval": yolo_eval_launches,
@@ -4828,6 +5144,8 @@ def main() -> int:
                 rec["launches_by_path"][f"viz_cli_{path}"] = launches[rec["name"]]
         for path, launches in slam_launches.items():
             rec["launches_by_path"][path] = launches[rec["name"]]
+        rec["launches_by_path"]["bf16_serve_fused"] = bf16_launches["fused"][rec["name"]]
+        rec["launches_by_path"]["bf16_serve_cli"] = bf16_launches["serve_cli"][rec["name"]]
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     track_rec["launches"] = serve_cli_assoc_launches

@@ -10,9 +10,17 @@ sampling and augmentation), one accumulated train step per batch
 at each checkpoint, through `cli/eval.py`), console + file logging, TensorBoard when a
 writer is importable, resume (`--resume_path`, `--auto_resume`) and
 weights-only loading (`--pretrained_path`), and the learning-rate curve as
-a PNG (drawn with `viz/raster.py`). It runs on cuda (raising without a
-GPU) unless `--platform cpu` is given. Flags whose work is not ported raise
-NotImplementedError (`config/train.py::refuse_unported`).
+a PNG (drawn with `viz/raster.py`). `--arch` trains KFPN (fpn_resnet_*) or
+the deconv CenterNet (resnet_*) on the same targets and losses (both heads
+at stride 4 of the raster). `--imagenet_pretrained` merges a torchvision
+ImageNet ResNet into the fresh model's backbone before the optimizer and
+EMA are built (`--imagenet_weights PATH`, else the torch hub cache).
+`--profile_dir DIR` runs the epochs under `torch.profiler` (CPU activity,
+and CUDA activity on the card) and writes DIR/trace_rank{r}.json, a Chrome
+trace, and on the card DIR/key_averages_rank{r}.txt, the profiler's table
+by device time. It runs on cuda (raising without a
+GPU) unless `--platform cpu` is given. Flags with no counterpart in the
+port raise NotImplementedError (`config/train.py::refuse_unported`).
 
 Data parallelism (`parallel/mesh.py`), one process per device:
 - SFA3D_DIST=1 with SFA3D_COORDINATOR, SFA3D_NUM_PROCESSES and
@@ -32,6 +40,7 @@ rank and the state is then broadcast from rank 0.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
@@ -91,8 +100,8 @@ def train(configs):
     """The training run of this process, data-parallel over the process
     group when one is initialised (a world of one otherwise)."""
     from sfa3d_tpu_torch.data.loader import create_train_loader, create_val_loader
-    from sfa3d_tpu_torch.models import create_model
-    from sfa3d_tpu_torch.models.port import load_torch_checkpoint
+    from sfa3d_tpu_torch.models import create_model, get_num_parameters
+    from sfa3d_tpu_torch.models.port import load_imagenet_backbone, load_torch_checkpoint
     from sfa3d_tpu_torch.parallel import create_train_state, make_eval_step, make_train_step
     from sfa3d_tpu_torch.parallel.mesh import barrier, make_mesh, min_over_ranks, replicate
     from sfa3d_tpu_torch.runtime.checkpoint import (
@@ -123,11 +132,15 @@ def train(configs):
 
     model = create_model(configs.model.arch, configs.model.head_conv)
     model.init_weights(torch.Generator().manual_seed(configs.runtime.seed))
+    if configs.model.imagenet_pretrained:
+        model.load_state_dict(load_imagenet_backbone(model.state_dict(), configs.model.num_layers,
+                                                     configs.model.imagenet_weights), strict=True)
+        logger.info(f"initialized backbone from ImageNet resnet{configs.model.num_layers} weights")
     if configs.runtime.pretrained_path:
         model.load_state_dict(load_torch_checkpoint(configs.runtime.pretrained_path), strict=True)
         logger.info(f"loaded pretrained weights from {configs.runtime.pretrained_path}")
     model = model.to(device)
-    logger.info(f"model {configs.model.arch}: {sum(p.numel() for p in model.parameters()):,} params")
+    logger.info(f"model {configs.model.arch}: {get_num_parameters(model):,} params")
 
     shards = dict(process_index=mesh.rank, process_count=mesh.world_size, device=device)
     train_loader = create_train_loader(configs, **shards)
@@ -166,53 +179,74 @@ def train(configs):
             return val_loss
 
         global_step = state.step  # resume keeps the schedule's position
-        for epoch in range(start_epoch, configs.runtime.num_epochs + 1):
-            logger.info(f">>> Epoch: [{epoch}/{configs.runtime.num_epochs}]")
-            train_loader.set_epoch(epoch)
-            batch_time = AverageMeter("Time", ":6.3f")
-            data_time = AverageMeter("Data", ":6.3f")
-            losses = AverageMeter("Loss", ":.4e")
-            progress = ProgressMeter(steps_per_epoch, [batch_time, data_time, losses],
-                                     prefix=f"Train - Epoch: [{epoch}/{configs.runtime.num_epochs}]")
-            start = time.time()
-            batches = iter(train_loader)
-            for batch_idx, batch in enumerate(itertools.islice(batches, steps_per_epoch)):
-                data_time.update(time.time() - start)
-                state, stats = train_step(state, batch)
-                global_step += 1
-                losses.update(float(stats["total_loss"]), configs.runtime.batch_size)
-                batch_time.update(time.time() - start)
-                if tb_writer is not None and global_step % configs.runtime.tensorboard_freq == 0:
-                    tb_writer.add_scalars("Train", {k: float(v) for k, v in stats.items()}
-                                          | {"avg_loss": losses.avg}, global_step)
-                    tb_writer.add_scalar("LR", tx.lr(global_step), global_step)
-                if global_step % configs.runtime.print_freq == 0:
-                    logger.info(progress.get_message(batch_idx))
+        rt = configs.runtime
+        with profiled(rt.profile_dir, device, mesh.rank) if rt.profile_dir else contextlib.nullcontext():
+            for epoch in range(start_epoch, configs.runtime.num_epochs + 1):
+                logger.info(f">>> Epoch: [{epoch}/{configs.runtime.num_epochs}]")
+                train_loader.set_epoch(epoch)
+                batch_time = AverageMeter("Time", ":6.3f")
+                data_time = AverageMeter("Data", ":6.3f")
+                losses = AverageMeter("Loss", ":.4e")
+                progress = ProgressMeter(steps_per_epoch, [batch_time, data_time, losses],
+                                         prefix=f"Train - Epoch: [{epoch}/{configs.runtime.num_epochs}]")
                 start = time.time()
-            _close(batches)  # a rank with a batch more than the others leaves it
-            logger.info(progress.get_message(steps_per_epoch - 1))
+                batches = iter(train_loader)
+                for batch_idx, batch in enumerate(itertools.islice(batches, steps_per_epoch)):
+                    data_time.update(time.time() - start)
+                    state, stats = train_step(state, batch)
+                    global_step += 1
+                    losses.update(float(stats["total_loss"]), configs.runtime.batch_size)
+                    batch_time.update(time.time() - start)
+                    if tb_writer is not None and global_step % configs.runtime.tensorboard_freq == 0:
+                        tb_writer.add_scalars("Train", {k: float(v) for k, v in stats.items()}
+                                              | {"avg_loss": losses.avg}, global_step)
+                        tb_writer.add_scalar("LR", tx.lr(global_step), global_step)
+                    if global_step % configs.runtime.print_freq == 0:
+                        logger.info(progress.get_message(batch_idx))
+                    start = time.time()
+                _close(batches)  # a rank with a batch more than the others leaves it
+                logger.info(progress.get_message(steps_per_epoch - 1))
 
-            if (not configs.runtime.no_val) and epoch % configs.runtime.checkpoint_freq == 0:
-                val_loss = validate(create_val_loader(configs, **shards), state, eval_step, step_mesh)
-                logger.info(f"val_loss: {val_loss:.4e}")
-                if tb_writer is not None:
-                    tb_writer.add_scalar("Val_loss", val_loss, epoch)
+                if (not configs.runtime.no_val) and epoch % configs.runtime.checkpoint_freq == 0:
+                    val_loss = validate(create_val_loader(configs, **shards), state, eval_step, step_mesh)
+                    logger.info(f"val_loss: {val_loss:.4e}")
+                    if tb_writer is not None:
+                        tb_writer.add_scalar("Val_loss", val_loss, epoch)
 
-            if epoch % configs.runtime.checkpoint_freq == 0:
-                if chief:
-                    path = save_checkpoint(configs.checkpoints_dir, configs.runtime.saved_fn, state, epoch)
-                    logger.info(f"save a checkpoint at {path}")
-                    if configs.runtime.val_ap:
-                        maybe_val_ap(configs, path, epoch, logger, tb_writer)
-                    prune_checkpoints(configs.checkpoints_dir, configs.runtime.saved_fn,
-                                      configs.runtime.keep_checkpoints)
-                barrier(mesh)  # no rank goes on (or resumes) before the checkpoint is whole
+                if epoch % configs.runtime.checkpoint_freq == 0:
+                    if chief:
+                        path = save_checkpoint(configs.checkpoints_dir, configs.runtime.saved_fn, state, epoch)
+                        logger.info(f"save a checkpoint at {path}")
+                        if configs.runtime.val_ap:
+                            maybe_val_ap(configs, path, epoch, logger, tb_writer)
+                        prune_checkpoints(configs.checkpoints_dir, configs.runtime.saved_fn,
+                                          configs.runtime.keep_checkpoints)
+                    barrier(mesh)  # no rank goes on (or resumes) before the checkpoint is whole
     finally:
         if tb_writer is not None:
             tb_writer.close()
         logger.close()
     return None
 
+
+@contextlib.contextmanager
+def profiled(profile_dir: str, device: torch.device, rank: int = 0):
+    """--profile_dir: runs the body under `torch.profiler` (CPU activity;
+    CUDA activity too on the card), then writes
+    profile_dir/trace_rank{rank}.json (a Chrome trace) and, on the card,
+    profile_dir/key_averages_rank{rank}.txt (the table of `key_averages()`
+    by self device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(profile_dir, f"trace_rank{rank}.json"))
+    if device.type == "cuda":
+        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+        with open(os.path.join(profile_dir, f"key_averages_rank{rank}.txt"), "w") as f:
+            f.write(table + "\n")
 
 def maybe_val_ap(configs, ckpt_path, epoch, logger, tb_writer):
     """The val split's detection AP at a checkpoint (--val_ap): the eval CLI

@@ -97,6 +97,11 @@ P2 = np.array(
     ]
 )
 
+# and their inverses, as the reference's kitti_config.py keeps them
+R0_inv = np.linalg.inv(R0)
+Tr_velo_to_cam_inv = np.linalg.inv(Tr_velo_to_cam)
+P2_inv = np.linalg.pinv(P2)
+
 # Fixed-shape budgets for the padded point tensors fed to the BEV raster.
 MAX_POINTS = 65536  # raw, unfiltered scans (the raster does the filtering)
 MAX_POINTS_FILTERED = 32768  # host-prefiltered scans

@@ -2,11 +2,16 @@
 `sfa3d_tpu/config/train.py` (one frozen dataclass tree and one CLI parser
 with the reference flag names and defaults).
 
-Flags that name work this port has not taken yet are parsed as in the JAX
-package and then refused by `refuse_unported` with a NotImplementedError,
-never ignored: `--imagenet_pretrained`, the JAX tooling flags
-`--profile_dir` and `--compilation_cache`, and an `--arch` other than
-fpn_resnet_*. `--mesh_shape N` trains data-parallel over N ranks
+Flags that name work with no counterpart in the port are parsed as in the
+JAX package and then refused by `refuse_unported` with a
+NotImplementedError, never ignored: `--compilation_cache` (XLA's
+executable cache) and a mesh larger than the visible GPUs.
+`--imagenet_pretrained` merges a torchvision ImageNet ResNet into the
+backbone (`models/port.py::load_imagenet_backbone`; `--imagenet_weights`,
+or the torch hub cache, never a download); `--profile_dir DIR` writes a
+`torch.profiler` trace of the training loop into DIR; `--arch` takes
+fpn_resnet_* (KFPN) and resnet_* (the deconv CenterNet).
+`--mesh_shape N` trains data-parallel over N ranks
 (`parallel/mesh.py`; None, as in JAX, takes every device: the visible GPUs
 on cuda, one rank on the CPU); on cuda without SFA3D_DIST a mesh larger
 than the visible GPUs is refused (NCCL refuses two ranks on one GPU). `--val_ap`
@@ -220,11 +225,8 @@ def refuse_unported(cfg: TrainConfig) -> TrainConfig:
          and not os.environ.get("SFA3D_DIST") and rt.mesh_shape > _visible_gpus(),
          f"--mesh_shape {rt.mesh_shape}: a mesh larger than the {_visible_gpus()} visible GPUs "
          "(NCCL refuses two ranks on one GPU; --platform cpu runs CPU ranks)"),
-        (cfg.model.imagenet_pretrained, "--imagenet_pretrained: ImageNet backbone init is not ported yet"),
-        (rt.profile_dir is not None, "--profile_dir: a jax.profiler trace has no counterpart in the port"),
         (rt.compilation_cache is not None,
          "--compilation_cache: the XLA compilation cache has no counterpart in the port"),
-        (not cfg.model.arch.startswith("fpn_resnet_"), f"--arch {cfg.model.arch}: the port trains fpn_resnet_* only"),
     ]
     for hit, msg in refused:
         if hit:

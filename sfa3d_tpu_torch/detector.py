@@ -80,7 +80,15 @@ class Detector:
     without a GPU; pass device="cpu" for a CPU run. Random weights come
     from `torch.Generator().manual_seed(seed)`. A `.pth` checkpoint is a
     reference state_dict or a training checkpoint of the port (use_ema
-    selects its EMA weights)."""
+    selects its EMA weights).
+
+    dtype="float32" (the default) is the parity mode: detections within
+    1e-3 of the JAX package's float32 path. dtype="bfloat16" runs the
+    network as the JAX package's bfloat16 model: its convolutions take
+    bfloat16 weights, cast once here (`models::to_inference_dtype`), and
+    its BatchNorms stay float32; the detections move by millimetres to
+    decimetres (`scripts/torch_bf16_audit.py` measures the envelope). Any
+    other dtype raises ValueError."""
 
     def __init__(
         self,
@@ -93,11 +101,10 @@ class Detector:
         seed: int = 0,
         use_ema: bool = False,
     ):
-        from sfa3d_tpu_torch.models import create_model
+        from sfa3d_tpu_torch.models import check_compute_dtype, create_model, to_inference_dtype
         from sfa3d_tpu_torch.pipeline import init_detector
 
-        if dtype != "float32":
-            raise ValueError(f"sfa3d_tpu_torch.Detector runs float32 only; got dtype={dtype!r}")
+        self.dtype = check_compute_dtype(dtype)
         self.device = resolve_device(device)
         self.K = K
         self.peak_thresh = peak_thresh
@@ -120,6 +127,7 @@ class Detector:
             )
         else:
             raise FileNotFoundError(f"checkpoint not found or not a .pth file: {checkpoint}")
+        to_inference_dtype(self.model, self.dtype)
 
     def detect_batch(self, pts: np.ndarray, valid: np.ndarray) -> Dict[str, np.ndarray]:
         """(B, P, 4) padded scans + (B, P) masks -> host dict with the small
@@ -290,7 +298,9 @@ class FusedDetector:
     the YOLO weights from `manual_seed(seed + 1)`. A YOLO checkpoint sizes
     the model from its own shapes; `yolo_scale` only picks the scale of
     random weights ('n' by default) and must agree with a checkpoint.
-    `imgsz` is the letterbox canvas: an int (square) or (h, w).
+    `imgsz` is the letterbox canvas: an int (square) or (h, w). `dtype`
+    is `Detector`'s: "bfloat16" runs KFPN and YOLOv8 in bfloat16, and the
+    stages after the networks in float32.
     """
 
     def __init__(
@@ -313,6 +323,7 @@ class FusedDetector:
         seed: int = 0,
     ):
         from sfa3d_tpu_torch.fusion.batch import build_fused_pipeline
+        from sfa3d_tpu_torch.models import to_inference_dtype
         from sfa3d_tpu_torch.models.yolov8 import YOLOv8, load_yolo_checkpoint
 
         base = Detector(arch=arch, checkpoint=checkpoint, K=K, peak_thresh=peak_thresh,
@@ -328,7 +339,7 @@ class FusedDetector:
                 )
         else:
             yolo = YOLOv8(scale=yolo_scale or "n").init_weights(torch.Generator().manual_seed(seed + 1))
-        self.yolo = yolo.to(self.device).eval()
+        self.yolo = to_inference_dtype(yolo.to(self.device).eval(), base.dtype)
         self._run = build_fused_pipeline(
             self.kfpn, self.yolo, K=K, max_yolo=max_yolo, mode=mode,
             use_gaussian_nms=use_gaussian_nms, peak_thresh=peak_thresh,

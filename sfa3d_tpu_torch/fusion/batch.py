@@ -18,6 +18,12 @@ Frame inputs per batch element:
   lb_scale (), lb_pad (2,)     letterbox scale r and (pad_w, pad_h)
 
 Fused outputs are in original camera pixels, fixed (max_yolo + K) slots.
+
+Networks set to bfloat16 (`models::to_inference_dtype`) run as the JAX
+program's bfloat16 models: their BatchNorms, the level softmax, the heads'
+decode and the DFL softmax take float32, and every stage after the
+networks (letterbox maths, projection, fusion, the loop kernels) sees
+float32.
 """
 
 from __future__ import annotations

@@ -95,7 +95,12 @@ def balanced_l1_loss(output, obj_mask, indices, target,
 def compute_loss(outputs: Dict[str, torch.Tensor],
                  tg: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total detection loss and its terms. `outputs`: raw head outputs, NHWC
-    (B, H, W, C) each; `tg`: the `build_targets` dict."""
+    (B, H, W, C) each; `tg`: the `build_targets` dict. The heads' grid
+    must be the targets' heatmap grid (KFPN's and the deconv arch's heads
+    are both at stride 4 of the raster); another one raises ValueError."""
+    if outputs["hm_cen"].shape != tg["hm_cen"].shape:
+        raise ValueError(f"the heatmap head {tuple(outputs['hm_cen'].shape)} is not on the targets' grid "
+                         f"{tuple(tg['hm_cen'].shape)}")
     hm = clamped_sigmoid(outputs["hm_cen"])
     offset = clamped_sigmoid(outputs["cen_offset"])
     mask, idx = tg["obj_mask"], tg["indices_center"]

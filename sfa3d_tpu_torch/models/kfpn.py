@@ -70,11 +70,15 @@ def _interp_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dty
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) -> (B, C, 2H, 2W), bilinear with align_corners=True, as
-    two products with the interpolation matrices (the JAX package's form)."""
+    two products with the interpolation matrices (the JAX package's form).
+    The products run in x's type, under autocast too, as JAX builds the
+    matrices in x.dtype: float32 for the backbone's last stage, bfloat16
+    for a bfloat16 lateral conv's output."""
     h, w = x.shape[-2:]
     ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
     aw = _interp_matrix(w, 2 * w, x.device, x.dtype)
-    return torch.matmul(torch.matmul(ah, x), aw.transpose(0, 1))
+    with torch.autocast(x.device.type, enabled=False):
+        return torch.matmul(torch.matmul(ah, x), aw.transpose(0, 1))
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -15,17 +15,29 @@ BatchNorm scale/bias -> weight/bias; batch_stats mean/var ->
 running_mean/running_var. float64 leaves stay float64 (the float64 parity
 checks); every other float becomes float32.
 
+`state_dict_from_jax` also takes the variables of the JAX package's two
+KFPN reformulations, which the port does not build: an `s2d_stem` model's
+(4, 4, 12, 64) stem kernel becomes the 7x7 one, and a `fused_heads`
+model's `fused{idx}_conv1` / `fused{idx}_conv2` pairs become the five
+towers (`_standard_kfpn_params`); the port's standard KFPN then computes
+the same function.
+
 `load_train_state_from_jax` carries a whole JAX `TrainState` (params,
 batch_stats, the optax moments, step, ema_params) into the port's
-training state, so both sides start a step from the same numbers.
+training state, so both sides start a step from the same numbers; a
+`DeconvCenterNet` takes the deconv bridge.
 `load_torch_checkpoint` reads reference `.pth` files and the port's own
 training checkpoints (`runtime/checkpoint.py`).
+`port_torchvision_backbone` / `load_imagenet_backbone` merge a
+torchvision ImageNet ResNet into a model's backbone (`--imagenet_pretrained`).
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -82,9 +94,66 @@ def _head_from_jax(sd, node, prefix: str) -> None:
     sd[f"{prefix}.2.bias"] = _t(node["conv2"]["bias"])
 
 
+def _stem_kernel_from_s2d(k4) -> np.ndarray:
+    """The inverse of the JAX package's `stem_kernel_to_s2d`: a (4, 4, 4C, F)
+    stride-1 kernel over the space-to-depth input -> the (7, 7, C, F)
+    stride-2 stem, K8[2u + dy, 2v + dx, c, f] = K4[u, v, (dy * 2 + dx) * C
+    + c, f] without K8's first row and column, which the transform leaves
+    zero (ValueError otherwise: no 7x7 stem computes that kernel)."""
+    k4 = np.asarray(k4)
+    c, f = k4.shape[2] // 4, k4.shape[3]
+    k8 = k4.reshape(4, 4, 2, 2, c, f).transpose(0, 2, 1, 3, 4, 5).reshape(8, 8, c, f)
+    if k8[0].any() or k8[:, 0].any():
+        raise ValueError("the s2d stem kernel has taps outside the 7x7 window: not a converted standard stem")
+    return k8[1:, 1:]
+
+
+def _towers_from_fused(conv1, conv2, idx: int) -> Dict[str, Any]:
+    """A `fused_heads` level's conv pair -> the five head towers, the
+    inverse of the JAX package's `fuse_head_params`: conv1 splits along its
+    outputs and conv2 keeps its diagonal blocks, in the heads' sorted order.
+    An off-diagonal conv2 weight that is not zero raises ValueError (the
+    towers cannot compute it)."""
+    order = sorted(HEADS.items())
+    k1, b1 = np.asarray(conv1["kernel"]), np.asarray(conv1["bias"])
+    k2, b2 = np.asarray(conv2["kernel"]), np.asarray(conv2["bias"])
+    hc = k1.shape[-1] // len(order)
+    off_diagonal = np.array(k2, copy=True)
+    towers, off_in, off_out = {}, 0, 0
+    for head, out_ch in order:
+        rows, cols = slice(off_in, off_in + hc), slice(off_out, off_out + out_ch)
+        towers[f"fpn{idx}_{head}"] = {"conv1": {"kernel": k1[..., rows], "bias": b1[rows]},
+                                      "conv2": {"kernel": k2[:, :, rows, cols], "bias": b2[cols]}}
+        off_diagonal[:, :, rows, cols] = 0
+        off_in, off_out = off_in + hc, off_out + out_ch
+    if off_diagonal.any():
+        raise ValueError(f"fused{idx}_conv2 mixes the heads (off-diagonal weights): not separable into towers")
+    return towers
+
+
+def _standard_kfpn_params(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    """JAX KFPN params of any layout -> the standard layout: an `s2d_stem`
+    stem kernel back to 7x7, `fused_heads` pairs back to towers; standard
+    params come back as they are."""
+    stem = params["backbone"]["stem"]["conv"]["kernel"]
+    fused = "fused0_conv1" in params
+    if np.shape(stem)[0] == 7 and not fused:
+        return params
+    params = dict(params)
+    if np.shape(stem)[0] != 7:
+        stem_node = {**params["backbone"]["stem"], "conv": {**params["backbone"]["stem"]["conv"],
+                                                            "kernel": _stem_kernel_from_s2d(stem)}}
+        params["backbone"] = {**params["backbone"], "stem": stem_node}
+    if fused:
+        for idx in range(3):
+            params.update(_towers_from_fused(params.pop(f"fused{idx}_conv1"), params.pop(f"fused{idx}_conv2"), idx))
+    return params
+
+
 def state_dict_from_jax(variables: Mapping[str, Any], num_layers: int = 18) -> "OrderedDict[str, torch.Tensor]":
-    """JAX KFPN variables (numpy leaves) -> the port's KFPN state_dict."""
-    params = variables["params"]
+    """JAX KFPN variables (numpy leaves; the standard, `s2d_stem` or
+    `fused_heads` layout) -> the port's KFPN state_dict."""
+    params = _standard_kfpn_params(variables["params"])
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     _backbone_from_jax(sd, params, variables.get("batch_stats", {}), num_layers)
     for lvl in (1, 2, 3):
@@ -210,15 +279,18 @@ def load_train_state_from_jax(state, jax_state, num_layers: int = 18):
             return {k: host(v) for k, v in tree.items()}
         return np.asarray(tree)
 
+    from sfa3d_tpu_torch.models.centernet_deconv import DeconvCenterNet
+
     batch_stats = host(jax_state.batch_stats)
     model = state.model
+    bridge = deconv_state_dict_from_jax if isinstance(model, DeconvCenterNet) else state_dict_from_jax
     ref = next(model.parameters())
-    sd = state_dict_from_jax({"params": host(jax_state.params), "batch_stats": batch_stats}, num_layers)
+    sd = bridge({"params": host(jax_state.params), "batch_stats": batch_stats}, num_layers)
     model.load_state_dict(sd, strict=True)
     names = [k for k, _ in model.named_parameters()]
 
     def as_params(tree):
-        out = state_dict_from_jax({"params": host(tree), "batch_stats": batch_stats}, num_layers)
+        out = bridge({"params": host(tree), "batch_stats": batch_stats}, num_layers)
         return {k: out[k].to(ref.dtype).to(ref.device) for k in names}
 
     params = dict(model.named_parameters())
@@ -257,3 +329,63 @@ def load_torch_checkpoint(path: str, use_ema: bool = False) -> Dict[str, torch.T
             raise ValueError(f"use_ema asked for, but {path} holds no ema_params (trained without --ema_decay?)")
         sd.update(ema)
     return sd
+
+
+BACKBONE_PREFIXES = ("conv1.", "bn1.", "layer1.", "layer2.", "layer3.", "layer4.")
+
+
+def port_torchvision_backbone(state_dict: Mapping[str, Any], model_state_dict: Mapping[str, torch.Tensor],
+                              num_layers: int = 18) -> "OrderedDict[str, torch.Tensor]":
+    """Merge a torchvision ResNet ImageNet state_dict into the backbone of a
+    KFPN or deconv model's state_dict -> a new state_dict (the JAX
+    package's `port_torchvision_backbone` on the port's names). torchvision
+    and PoseResNet share the backbone's key names, so this is a filter and
+    a strict shape check, not a layout change: every backbone entry of the
+    model (`conv1`, `bn1`, `layer1`..`layer4`; weights, biases and the
+    BatchNorm running statistics, as JAX merges `batch_stats`) takes the
+    file's tensor in the model's dtype; `fc.*` and `num_batches_tracked`
+    are ignored, and the FPN, deconv and head entries keep their values. A
+    backbone entry missing from the file, or of another shape (a
+    ResNet-50 file for an 18-layer model), raises ValueError naming the
+    key."""
+    from sfa3d_tpu_torch.models.resnet import RESNET_SPEC
+
+    _, counts = RESNET_SPEC[num_layers]
+    last = [f"layer{stage + 1}.{n - 1}.conv1.weight" for stage, n in enumerate(counts)]
+    beyond = [f"layer{stage + 1}.{n}.conv1.weight" for stage, n in enumerate(counts)]
+    if any(k not in model_state_dict for k in last) or any(k in model_state_dict for k in beyond):
+        raise ValueError(f"the model's backbone is not a ResNet-{num_layers}")
+    out = OrderedDict(model_state_dict)
+    for k, have in model_state_dict.items():
+        if not k.startswith(BACKBONE_PREFIXES) or k.endswith("num_batches_tracked"):
+            continue
+        if k not in state_dict:
+            raise ValueError(f"ImageNet weight {k} is missing from the file (not a torchvision "
+                             f"resnet{num_layers} state_dict?)")
+        new = torch.as_tensor(state_dict[k])
+        if tuple(new.shape) != tuple(have.shape):
+            raise ValueError(f"ImageNet weight {k} has shape {tuple(new.shape)}, model expects "
+                             f"{tuple(have.shape)} — wrong num_layers for this checkpoint?")
+        out[k] = new.to(have.dtype).clone()
+    return out
+
+
+def load_imagenet_backbone(model_state_dict: Mapping[str, torch.Tensor], num_layers: int = 18,
+                           weights_path: Optional[str] = None) -> "OrderedDict[str, torch.Tensor]":
+    """`--imagenet_pretrained`: a torchvision ImageNet ResNet `.pth` merged
+    into the backbone of `model_state_dict` (`port_torchvision_backbone`).
+    With no path, the newest `resnet{N}-*.pth` of the torch hub cache
+    ($TORCH_HOME/hub/checkpoints, TORCH_HOME defaulting to ~/.cache/torch)
+    is read; nothing is ever downloaded, and FileNotFoundError says so."""
+    if weights_path is None:
+        hub_dir = os.path.join(os.environ.get("TORCH_HOME", os.path.expanduser("~/.cache/torch")),
+                               "hub", "checkpoints")
+        candidates = sorted(glob.glob(os.path.join(hub_dir, f"resnet{num_layers}-*.pth")))
+        if not candidates:
+            raise FileNotFoundError(
+                f"no ImageNet resnet{num_layers} checkpoint found in {hub_dir}, and none is "
+                f"downloaded; pass --imagenet_weights /path/to/resnet{num_layers}-*.pth "
+                "(a torchvision state_dict)")
+        weights_path = candidates[-1]
+    sd = torch.load(weights_path, map_location="cpu", weights_only=True)
+    return port_torchvision_backbone(sd, model_state_dict, num_layers)

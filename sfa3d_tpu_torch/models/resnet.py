@@ -39,13 +39,19 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     batch's, taken in flax's order (`_global_forward`). Eval mode is
     nn.BatchNorm2d's. The state_dict keys
     (weight, bias, running_mean, running_var, num_batches_tracked) are
-    nn.BatchNorm2d's. `eps` and `momentum` are flax's (YOLOv8: 1e-3, 0.97)."""
+    nn.BatchNorm2d's. `eps` and `momentum` are flax's (YOLOv8: 1e-3, 0.97).
+    Every mode normalises in at least float32 and returns that type, as
+    flax's BatchNorm(dtype=promote(float32, dtype)) in the JAX package's
+    bfloat16 models: a bfloat16 input (autocast training, a
+    `to_inference_dtype` model) leaves as float32, a float64 one as
+    float64."""
 
     def __init__(self, channels: int, eps: float = BN_EPS, momentum: float = FLAX_MOMENTUM):
         super().__init__(channels, eps=eps, momentum=1 - momentum)
         self.flax_momentum = momentum
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
         group = active_group()
@@ -70,22 +76,21 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         through the global statistics, as through XLA's psum), mean and
         biased variance E[x^2] - E[x]^2 clipped at 0, y = (x - mean) *
         (rsqrt(var + eps) * weight) + bias, and the running statistics
-        updated with flax's momentum and the biased variance. Reductions run
-        in at least float32; y takes x's dtype."""
-        xs = x.to(torch.promote_types(x.dtype, torch.float32))
-        c = xs.shape[1]
-        count = torch.full((1,), xs.numel() // c, dtype=xs.dtype, device=xs.device)
-        sums = all_reduce_sum(torch.cat([xs.sum((0, 2, 3)), (xs * xs).sum((0, 2, 3)), count]), group)
+        updated with flax's momentum and the biased variance. x is already
+        at least float32 (`forward`)."""
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+        sums = all_reduce_sum(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)), count]), group)
         mean = sums[:c] / sums[2 * c]
         var = torch.clamp_min(sums[c:2 * c] / sums[2 * c] - mean * mean, 0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(xs.dtype)
-        y = (xs - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias.to(xs.dtype)[None, :, None, None]
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)
+        y = (x - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias.to(x.dtype)[None, :, None, None]
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.detach())
             self.running_var.copy_(m * self.running_var + (1 - m) * var.detach())
             self.num_batches_tracked.add_(1)
-        return y.to(x.dtype)
+        return y
 
 
 def _bn(channels: int) -> FlaxBatchNorm2d:

@@ -47,7 +47,7 @@ import torch
 
 from sfa3d_tpu_torch import native
 from sfa3d_tpu_torch.config import kitti as cnf
-from sfa3d_tpu_torch.device import device_constant
+from sfa3d_tpu_torch.device import Device, device_constant, resolve_device
 from sfa3d_tpu_torch.ops.bev_counts import _f32_reciprocal, argoverse_raster_reduce, bev_raster_reduce
 
 _BOUND = (
@@ -251,6 +251,21 @@ def points_to_bev(
         points, valid, bev_height=bev_height, bev_width=bev_width, bound=bound
     ).permute(0, 2, 3, 1)
     return bev[0] if single else bev
+
+
+def make_bev_map(points: np.ndarray, boundary: Dict[str, float] = cnf.boundary,
+                 device: Device = None) -> np.ndarray:
+    """The reference's makeBEVMap(PointCloud, boundary) as the JAX package
+    has it: a RAW (unfiltered, unshifted) (N, 4) scan, range-filtered on
+    the host before padding (so a KITTI-sized cloud never truncates), ->
+    (H, W, 3) float32 HWC raster through the port's raster path, as numpy.
+    On `device` (default cuda; raises without a GPU unless device="cpu")."""
+    padded, valid = filter_and_pad_points(points, max_points=cnf.MAX_POINTS_FILTERED, boundary=boundary)
+    bound = (boundary["minX"], boundary["maxX"], boundary["minY"], boundary["maxY"],
+             boundary["minZ"], boundary["maxZ"])
+    dev = resolve_device(device)
+    bev = points_to_bev(torch.from_numpy(padded).to(dev), torch.from_numpy(valid).to(dev), bound=bound)
+    return bev.cpu().numpy()
 
 
 def hflip_bev(bev_nchw: torch.Tensor, hflip: torch.Tensor) -> torch.Tensor:

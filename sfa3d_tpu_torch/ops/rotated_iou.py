@@ -128,6 +128,18 @@ def pairwise_iou_bev_rotated(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torc
     return (inter / torch.clamp_min(union, 1e-12)).reshape(n, m)
 
 
+def iou_bev_rotated(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """Rotated BEV IoU of one pair of (5,) [x, y, w, l, yaw] boxes -> a
+    0-dim tensor (the batched intersection at one pair)."""
+    return pairwise_iou_bev_rotated(torch.as_tensor(box1)[None], torch.as_tensor(box2)[None])[0, 0]
+
+
+def iou_3d(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """KITTI-style 3D IoU of one pair of (7,) [x, y, z, h, w, l, yaw]
+    velodyne boxes (z the bottom) -> a 0-dim tensor."""
+    return pairwise_iou_3d(torch.as_tensor(box1)[None], torch.as_tensor(box2)[None])[0, 0]
+
+
 def pairwise_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """(N, 7) x (M, 7) [x, y, z, h, w, l, yaw] velodyne boxes (z the
     bottom, z..z+h the height) -> (N, M) 3D IoU: the BEV overlap area times

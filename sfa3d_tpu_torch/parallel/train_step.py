@@ -37,14 +37,14 @@ gradient all-reduce with the backward. At world size 1 (or without a
 mesh) no collective runs and the step is the one-device step.
 
 `compute_dtype="bfloat16"` runs forward and backward under
-`torch.autocast(dtype=torch.bfloat16)` with float32 parameters (the JAX
-default's bfloat16 activations); "float32" is strict float32 (and a
-float64 model stays float64).
+`models/__init__.py::compute_autocast`, `torch.autocast(dtype=
+torch.bfloat16)` with float32 parameters (the JAX default's bfloat16
+activations), the context inference runs under too; "float32" is strict
+float32 (and a float64 model stays float64).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
@@ -55,6 +55,7 @@ from torch import nn
 from sfa3d_tpu_torch.collectives import all_reduce_sum, data_parallel
 from sfa3d_tpu_torch.device import Device, resolve_device
 from sfa3d_tpu_torch.losses import compute_loss
+from sfa3d_tpu_torch.models import check_compute_dtype, compute_autocast
 from sfa3d_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
 from sfa3d_tpu_torch.runtime.schedules import OptimizerSpec
 
@@ -94,15 +95,6 @@ def ema_decay_at(step: int, decay: float, tau: float = 2000.0) -> np.float32:
     float32(1 / tau))."""
     inv_tau = np.float32(1.0) / np.float32(tau)
     return np.float32(decay) * (np.float32(1.0) - np.exp(-np.float32(step) * inv_tau))
-
-
-def _autocast(model: nn.Module, compute_dtype: str):
-    if compute_dtype == "float32":
-        return contextlib.nullcontext()
-    if compute_dtype == "bfloat16":
-        dev = next(model.parameters()).device
-        return torch.autocast(device_type=dev.type, dtype=torch.bfloat16)
-    raise ValueError(f"unknown compute_dtype {compute_dtype!r}; expected 'bfloat16' or 'float32'")
 
 
 def _heads_nhwc(model: nn.Module, bev_nchw: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -148,6 +140,8 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, ema_decay: float = 0.0,
     stats: the mean over the S micro-batches of each loss term (of the
     global batch), 0-dim tensors on the device."""
     _check_device(model, device, mesh)
+    check_compute_dtype(compute_dtype)
+    device_of = next(model.parameters()).device
     synced = mesh is not None and mesh.synced
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -161,7 +155,7 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, ema_decay: float = 0.0,
         totals = None
         for s in range(n_micro):
             with data_parallel(mesh):
-                with _autocast(m, compute_dtype):
+                with compute_autocast(device_of, compute_dtype):
                     outputs = _heads_nhwc(m, bev[s])
                 total, stats = compute_loss(outputs, {k: v[s] for k, v in targets.items()})
             total.backward()

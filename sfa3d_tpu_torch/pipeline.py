@@ -4,6 +4,12 @@ raw padded points -> BEV raster (hand-written CUDA tile kernel) -> KFPN ->
 clamped sigmoid -> peak decode -> metric 7-DOF boxes, all on one device and
 under `torch.inference_mode()`. Public tensors keep the JAX layout (NHWC
 raster and heads); the model runs NCHW inside.
+
+A network set to bfloat16 (`models::to_inference_dtype`: bfloat16
+convolutions, float32 BatchNorm, the level softmax in float32; the JAX
+package's bfloat16 model) returns bfloat16 heads; the raster before it and
+the decode after it stay float32, as in JAX (`clamped_sigmoid` in at
+least float32, the other heads cast).
 """
 
 from __future__ import annotations
@@ -34,7 +40,8 @@ def _heads_nhwc(model, bev_nchw: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def forward_heads(model, bev: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(B, H, W, 3) BEV batch -> raw head dict, each (B, H/4, W/4, C), on
-    the model's device (the JAX `model.apply(variables, bev)`)."""
+    the model's device (the JAX `model.apply(variables, bev)`; bfloat16
+    heads from a bfloat16 network)."""
     bev = torch.as_tensor(bev, device=_model_device(model))
     with torch.inference_mode():
         return _heads_nhwc(model, bev.permute(0, 3, 1, 2))

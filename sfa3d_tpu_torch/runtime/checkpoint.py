@@ -92,6 +92,17 @@ def load_params_only(path: str, use_ema: bool = False) -> dict:
     return load_torch_checkpoint(path, use_ema=use_ema)
 
 
+def load_pretrained_params(state, state_dict) -> object:
+    """Weights-only load (the reference's --pretrained_path): the model's
+    parameters and BatchNorm statistics from `state_dict` (a model
+    state_dict, e.g. `load_params_only`'s), the optimizer state and the
+    step kept. In place; returns `state`. The EMA, if any, is left as it
+    was, as the JAX package's `state.replace(params=, batch_stats=)`
+    leaves ema_params."""
+    state.model.load_state_dict(state_dict, strict=True)
+    return state
+
+
 def prune_checkpoints(checkpoints_dir: str, saved_fn: str, keep_last: int) -> None:
     """Delete all but the newest `keep_last` epoch checkpoints (0 keeps all)."""
     if keep_last <= 0:

@@ -6,6 +6,9 @@ from __future__ import annotations
 
 import logging
 import os
+import time
+
+import torch
 
 
 class Logger:
@@ -77,6 +80,18 @@ class ProgressMeter:
         entries = [self.prefix + self.batch_fmtstr.format(batch)]
         entries += [str(m) for m in self.meters]
         return "\t".join(entries)
+
+
+def time_synchronized(device=None) -> float:
+    """Device-synchronized wall clock (the reference's utils/misc.py:69-71):
+    on a CUDA device, `torch.cuda.synchronize()` first, then `time.time()`.
+    `device` None is the current CUDA device when CUDA is available; a CPU
+    device synchronizes nothing."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.time()
 
 
 def create_tb_writer(logs_dir: str):

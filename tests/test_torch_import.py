@@ -66,6 +66,34 @@ def test_port_source_has_no_jax_import(path):
     assert not hits, f"{path} imports {hits}"
 
 
+CHECK_SCRIPTS = [ROOT / "scripts" / "torch_overfit_check.py", ROOT / "scripts" / "torch_bf16_audit.py",
+                 ROOT / "scripts" / "torch_bf16_compare.py"]
+
+
+@pytest.mark.parametrize("path", CHECK_SCRIPTS, ids=lambda p: p.name)
+def test_check_scripts_import_no_jax(path):
+    """The port's check scripts import nothing banned, at their top or in
+    their functions, and load and parse their flags with JAX absent."""
+    assert not FORBIDDEN_IMPORT.findall(path.read_text())
+    code = (
+        "import sys, importlib.util\n"
+        "for banned in ('jax', 'sfa3d_tpu', 'cv2', 'PIL', 'matplotlib', 'ultralytics'):\n"
+        "    sys.modules[banned] = None\n"
+        f"spec = importlib.util.spec_from_file_location('script', {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "try:\n"
+        "    mod.main(['--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        "assert not [m for m in sys.modules if m.startswith(('jax.', 'flax', 'sfa3d_tpu.', 'cv2.', 'PIL.'))]\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_detector_raises_without_gpu(monkeypatch):
     from sfa3d_tpu_torch.detector import Detector
     from sfa3d_tpu_torch.device import resolve_device

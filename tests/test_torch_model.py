@@ -126,7 +126,7 @@ def test_unported_options_raise(tmp_path):
 
     with pytest.raises(ValueError, match="unknown arch"):
         create_model("dla_34")
-    with pytest.raises(ValueError, match="float32 only"):
-        Detector(device="cpu", dtype="bfloat16")
+    with pytest.raises(ValueError, match="unknown compute dtype"):  # bfloat16 is served since slice 12
+        Detector(device="cpu", dtype="float16")
     with pytest.raises(NotImplementedError, match="Orbax"):
         Detector(checkpoint=str(tmp_path), device="cpu")

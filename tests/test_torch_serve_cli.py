@@ -369,8 +369,8 @@ def test_serve_refuses_jax_only_options_and_fused_tracking(checkpoint, tmp_path)
         serve.main(["--compilation_cache", "--platform", "cpu"])
     with pytest.raises(SystemExit, match="--track"):
         serve.main(["--fused", "--track", "--platform", "cpu"])
-    with pytest.raises(ValueError, match="float32 only"):
-        serve.main(["--dtype", "bfloat16", "--platform", "cpu"], stdin=io.StringIO(""), stdout=io.StringIO())
+    with pytest.raises(SystemExit):  # the parser takes float32 and bfloat16 (served since slice 12)
+        serve.main(["--dtype", "float16", "--platform", "cpu"], stdin=io.StringIO(""), stdout=io.StringIO())
 
 
 def test_serve_arch_resnet_18_answers(tmp_path, scans):

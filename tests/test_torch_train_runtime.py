@@ -298,8 +298,16 @@ def test_checkpoint_files_and_loading(tmp_path, init_state_dict):
                                   ["--imagenet_pretrained"], ["--dataset", "argoverse", "--mesh_shape", "4"],
                                   ["--profile_dir", "/tmp/p"], ["--compilation_cache"], ["--arch", "resnet_18"]])
 def test_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError):
-        parse_train_configs(flag)
+    if flag[0] in ("--imagenet_pretrained", "--profile_dir", "--arch"):
+        # ported since slice 12 (tests/test_torch_imagenet_init.py, test_torch_train_options.py)
+        cfg = parse_train_configs(flag)
+        assert (cfg.model.imagenet_pretrained, cfg.runtime.profile_dir, cfg.model.arch) == {
+            "--imagenet_pretrained": (True, None, "fpn_resnet_18"),
+            "--profile_dir": (False, "/tmp/p", "fpn_resnet_18"),
+            "--arch": (False, None, "resnet_18")}[flag[0]]
+    else:
+        with pytest.raises(NotImplementedError):
+            parse_train_configs(flag)
     cfg = parse_train_configs(["--mesh_shape", "1"])
     assert cfg.model.compute_dtype == "bfloat16" and cfg.runtime.batch_size == 16
     assert cfg.optim.effective_batch == 64 and cfg.runtime.platform is None
