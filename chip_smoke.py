@@ -281,6 +281,19 @@ Phases, each printing one JSON line:
           ImageNet init logged, the weights within Adam's first step of the
           file's, one raster launch, CUDA kernels in the trace and the
           key_averages table written, the checkpoint loaded by Detector
+  checks  the five ports of the JAX check scripts (scripts/torch_*_check.py),
+          each a subprocess on the card at full width (fpn_resnet_18, 608 x
+          608) and tiny depth, exit code 0 required: generalize (16 / 4
+          frames, 2 epochs from conditioned weights, SIGKILLed after the
+          epoch-1 checkpoint, resumed through --auto_resume, the curve
+          through cli.eval), trained parity (that run's last checkpoint,
+          its EMA weights, card against CPU on 4 held-out frames), tracking
+          (detector mode, 1 x 6 frames, on the card and with --platform
+          cpu: track ids equal), fusion (4 frames, the train phase's
+          mini-KITTI, the yolo_train phase's best.pt: trained-camera rows
+          too) and Argoverse (8 / 2 sweeps, 1 epoch); the accuracy gates in
+          --smoke mode (tiny depth cannot pass them); each check's wall
+          seconds and the kernel launches its own process counted
 Then the script's total seconds, one {"kernels": [...]} line and, last, the
 {"ok": true, ...} line.
 
@@ -5073,6 +5086,157 @@ def phase_train_options(card, tmp_root, root):
     return cli_launches
 
 
+CHECKS_TIMEOUT = 400  # s for one check's subprocess, its start, imports and builds included
+CHECK_FRAMES = 4  # held-out frames of trained parity, fusion; the generalize run's val split
+TRACK_CHECK_FRAMES = 6
+CHECKS_ARGS = ()  # appended to every check's arguments (a CPU rehearsal adds --platform cpu)
+
+
+def _start_check(name, args, log_dir, env=None):
+    """Start scripts/<name>.py with `args` in its own session; its output
+    goes to log_dir/<name><n>.log and a thread notes when it ends."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = open(os.path.join(log_dir, f"{name}{len(os.listdir(log_dir))}.log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.join(here, "scripts", f"{name}.py"), *args, *CHECKS_ARGS],
+                            cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    proc.log, proc.started, proc.ended = out, time.perf_counter(), None
+
+    def note_end():
+        proc.wait()
+        proc.ended = time.perf_counter()
+
+    proc.watch = threading.Thread(target=note_end, daemon=True)
+    proc.watch.start()
+    return proc
+
+
+def _finish_check(proc, report_path):
+    """Wait for a check (killing its session at CHECKS_TIMEOUT); raise with
+    the end of its output unless it exited 0. Returns (its report, its wall
+    seconds)."""
+    import os
+    import signal
+
+    proc.watch.join(timeout=max(1.0, CHECKS_TIMEOUT - (time.perf_counter() - proc.started)))
+    if proc.watch.is_alive():
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.watch.join()
+    seconds = proc.ended - proc.started
+    proc.log.close()
+    if proc.returncode != 0:
+        with open(proc.log.name) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"{' '.join(proc.args[1:3])} ... exited {proc.returncode} after {seconds:.1f} s:\n{tail}")
+    with open(report_path) as f:
+        return json.load(f), seconds
+
+
+def check_launches(reports, want):
+    """Each check's process launched exactly the kernels `want` names, as
+    often; the CPU tracking run launched none."""
+    for key, counts in want.items():
+        got = {k: v for k, v in reports[key]["launches"].items() if v}
+        if got != counts:
+            raise AssertionError(f"{key}: launches {got}, expected {counts}")
+    if set(reports["tracking_cpu"]["launches"].values()) != {0}:
+        raise AssertionError(f"the CPU tracking run launched kernels: {reports['tracking_cpu']['launches']}")
+
+
+def phase_checks(card, tmp_root, kitti_root, yolo_weights):
+    """The ports of the JAX check scripts, each run as a user runs it: a
+    subprocess on the card at full width and tiny depth (see the module
+    docstring). Tracking (card and CPU) and the Argoverse check run beside
+    the generalize run; trained parity and fusion, which read its last
+    checkpoint, run side by side after it.
+    Each check's report carries the kernel launches of its own process
+    (the trainer's processes are not counted). Returns {check: launches}."""
+    import os
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the checks' processes share the card
+    work = os.path.join(tmp_root, "checks")
+    logs = os.path.join(work, "logs")
+    os.makedirs(logs)
+    start = os.path.join(work, "start.pth")
+    model = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED))
+    bump_heatmap_bias(model)  # detections above the thresholds from the first epoch on
+    bump_dim_bias(model)
+    torch.save({"state_dict": model.state_dict()}, start)
+    out = {k: os.path.join(work, f"{k}.json") for k in
+           ("generalize", "trained_parity", "tracking", "tracking_cpu", "fusion", "argoverse")}
+    cpu_env = dict(os.environ, OMP_NUM_THREADS="4")
+    track = ["--pretrained_path", start, "--n_seqs", "1", "--n_frames", str(TRACK_CHECK_FRAMES), "--smoke"]
+    gen_dir = os.path.join(work, "generalize")
+    last = os.path.join(gen_dir, "checkpoints", "gen", "Model_gen_epoch_2.pth")
+    t0 = time.perf_counter()
+    first = {  # the generalize run, and beside it the checks that need none of its output
+        "generalize": _start_check("torch_generalize_check", [
+            "--frames_train", "16", "--frames_val", str(CHECK_FRAMES), "--epochs", "2", "--checkpoint_freq", "1",
+            "--batch_size", "4", "--effective_batch", "8", "--kill_after_epoch", "1", "--kill_delay", "0",
+            "--ema_decay", "0.998", "--ema_tau", "200", "--pretrained_path", start, "--smoke",
+            "--work_dir", gen_dir, "--keep_tmp", "--out", out["generalize"]], logs),
+        "tracking": _start_check("torch_tracking_check", track + ["--out", out["tracking"]], logs),
+        "tracking_cpu": _start_check("torch_tracking_check", track + ["--platform", "cpu", "--out",
+                                                                     out["tracking_cpu"]], logs, cpu_env),
+        "argoverse": _start_check("torch_argoverse_check", [
+            "--frames_train", "8", "--frames_val", "2", "--epochs", "1", "--checkpoint_freq", "1",
+            "--batch_size", "4", "--smoke", "--out", out["argoverse"]], logs),
+    }
+    reports, seconds = {}, {}
+    reports["generalize"], seconds["generalize"] = _finish_check(first.pop("generalize"), out["generalize"])
+    then = {  # the generalize run's last checkpoint, its EMA weights
+        "trained_parity": _start_check("torch_trained_parity_check", [
+            "--dataset_dir", os.path.join(gen_dir, "kitti"), "--pretrained_path", last, "--use_ema",
+            "--num_samples", str(CHECK_FRAMES), "--out", out["trained_parity"]], logs),
+        "fusion": _start_check("torch_fusion_check", [
+            "--dataset_dir", kitti_root, "--pretrained_path", last, "--use_ema", "--num_samples", str(CHECK_FRAMES),
+            "--yolo_weights", yolo_weights, "--smoke", "--out", out["fusion"]], logs),
+    }
+    for key, proc in {**first, **then}.items():
+        reports[key], seconds[key] = _finish_check(proc, out[key])
+    total_s = time.perf_counter() - t0
+
+    gen, parity, fusion = reports["generalize"], reports["trained_parity"], reports["fusion"]
+    track_card, track_cpu, argo = reports["tracking"], reports["tracking_cpu"], reports["argoverse"]
+    curve = [r["epoch"] for r in gen["val_map_curve"]]
+    if gen["killed_after_epoch"] != 1 or gen["resume_history"] != [1] or curve != [1, 2]:
+        raise AssertionError(f"generalize: killed {gen['killed_after_epoch']}, resumed {gen['resume_history']}, "
+                             f"curve {curve}")
+    if not parity["pass"] or parity["total_detections_compared"] == 0:
+        raise AssertionError(f"trained parity failed: {parity}")
+    ids_card = [s["track_ids"] for s in track_card["per_seq"]]
+    ids_cpu = [s["track_ids"] for s in track_cpu["per_seq"]]
+    if ids_card != ids_cpu or not any(any(f) for s in ids_card for f in s):
+        raise AssertionError(f"tracking ids card vs CPU: {ids_card} against {ids_cpu}")
+    frames = CHECK_FRAMES
+    want = {
+        "generalize": {"bev_raster_reduce": 2 * frames},  # cli.eval on the two checkpoints
+        "trained_parity": {"bev_raster_reduce": frames},
+        "tracking": {"bev_raster_reduce": TRACK_CHECK_FRAMES, "track_associate": TRACK_CHECK_FRAMES},
+        # one match a rule and draw: 2 rules x 4 draws, the control, 2 trained-camera rows
+        "fusion": {"bev_raster_reduce": frames, "greedy_match": 11 * frames, "hard_nms_keep": frames},
+        "argoverse": {"argoverse_raster_reduce": 2},
+    }
+    check_launches(reports, want)
+    for key in reports:
+        emit({"phase": "checks", "check": key, "seconds": seconds[key], "launches": reports[key]["launches"],
+              "device": reports[key]["device"]})
+    emit({"phase": "checks", "seconds": total_s,
+          "generalize": {"killed_after_epoch": gen["killed_after_epoch"], "resume_history": gen["resume_history"],
+                         "val_mAP": [r["val_mAP"] for r in gen["val_map_curve"]],
+                         "train_seconds": gen["train_seconds"], "eval_seconds": gen["eval_seconds"]},
+          "trained_parity": {k: parity[k] for k in ("frames", "total_detections_compared", "worst_abs_diff",
+                                                    "raster_card_vs_cpu")},
+          "tracking": {"summary_card": track_card["summary"]["overall"],
+                       "summary_cpu": track_cpu["summary"]["overall"], "ids_equal": True},
+          "fusion": {k: fusion[k]["mAP"] for k in ("lidar_only", "reference_max_rule", "monotone_demote_rule",
+                                                   "trained_camera_demote_rule")},
+          "argoverse": {"val_bev_mAP": [r["val_bev_mAP"] for r in argo["val_curve"]]},
+          "card": card["nvidia_smi"]})
+    return {key: reports[key]["launches"] for key in want}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
@@ -5105,6 +5269,7 @@ def main() -> int:
         slam_launches = phase_slam(card, tmp_root)
         bf16_launches = phase_bf16_serve(card, tmp_root)
         options_launches = phase_train_options(card, tmp_root, root)
+        phase_checks(card, tmp_root, root, best_path)
     fused_path = "BatchingFusedServer: 16 requests, warmups included"
     raster_rec["launches"] = fused["bev_raster_reduce"]
     raster_rec["path"] = fused_path

@@ -38,9 +38,23 @@ from typing import Dict
 
 import numpy as np
 
+from sfa3d_tpu_torch import native
 from sfa3d_tpu_torch.config import kitti as cnf
 from sfa3d_tpu_torch.detector import format_detections, fused_reply
 from sfa3d_tpu_torch.ops.bev import filter_and_pad_points
+
+
+def read_scan_filtered(velodyne_bin: str, max_points: int):
+    """A velodyne `.bin` scan -> the padded (max_points, 4) points and
+    mask that `filter_and_pad_points` gives: the native fused read, filter
+    and pad (the raw scan is never materialised; it raises for an
+    unreadable or malformed file, where JAX's servers fall back to numpy),
+    or with SFA3D_TPU_NO_NATIVE numpy's read and the filter."""
+    native.note_path()
+    if native.enabled():
+        return native.read_velodyne_filtered(velodyne_bin, max_points, cnf.boundary)
+    points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
+    return filter_and_pad_points(points, max_points=max_points)
 
 
 def _next_pow2(n: int) -> int:
@@ -100,8 +114,8 @@ class BatchingDetectorServer:
         return fut
 
     def submit_file(self, velodyne_bin: str) -> Future:
-        points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
-        return self.submit(points)
+        """Request from a `.bin` scan path (`read_scan_filtered`)."""
+        return self._enqueue(*read_scan_filtered(velodyne_bin, self._P))
 
     def buckets(self):
         """Every batch size the server runs: a fixed-batch artifact's one
@@ -244,9 +258,9 @@ class BatchingFusedServer(BatchingDetectorServer):
         return self._enqueue_fused(pts, valid, image_rgb, calib)
 
     def submit_fused_file(self, velodyne_bin: str, image_rgb: np.ndarray, calib) -> Future:
-        """Fused request from a `.bin` scan path (read with numpy)."""
-        points = np.fromfile(velodyne_bin, dtype=np.float32).reshape(-1, 4)
-        return self.submit_fused(points, image_rgb, calib)
+        """Fused request from a `.bin` scan path (`read_scan_filtered`)."""
+        pts, valid = read_scan_filtered(velodyne_bin, self._P)
+        return self._enqueue_fused(pts, valid, image_rgb, calib)
 
     def _enqueue_fused(self, pts, valid, image_rgb, calib) -> Future:
         from sfa3d_tpu_torch.models.yolov8 import letterbox

@@ -14,7 +14,8 @@ import torch
 import sfa3d_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_SOURCES = sorted((ROOT / "sfa3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_SOURCES = sorted((ROOT / "sfa3d_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "scripts" / "torch_check_common.py"]
 FORBIDDEN_IMPORT = re.compile(r"^\s*(from|import)\s+(jax|sfa3d_tpu|cv2|PIL|matplotlib|ultralytics)\b",
                               re.MULTILINE)
 
@@ -67,7 +68,18 @@ def test_port_source_has_no_jax_import(path):
 
 
 CHECK_SCRIPTS = [ROOT / "scripts" / "torch_overfit_check.py", ROOT / "scripts" / "torch_bf16_audit.py",
-                 ROOT / "scripts" / "torch_bf16_compare.py"]
+                 ROOT / "scripts" / "torch_bf16_compare.py", ROOT / "scripts" / "torch_generalize_check.py",
+                 ROOT / "scripts" / "torch_trained_parity_check.py", ROOT / "scripts" / "torch_tracking_check.py",
+                 ROOT / "scripts" / "torch_fusion_check.py", ROOT / "scripts" / "torch_argoverse_check.py",
+                 ROOT / "scripts" / "torch_check_runs.py"]
+# the JAX check scripts' ports: the arguments each needs to get past its parser
+JAX_CHECK_PORTS = {
+    "torch_generalize_check.py": [],
+    "torch_trained_parity_check.py": ["--dataset_dir", "d", "--pretrained_path", "p"],
+    "torch_tracking_check.py": ["--oracle"],
+    "torch_fusion_check.py": ["--dataset_dir", "d", "--pretrained_path", "p"],
+    "torch_argoverse_check.py": [],
+}
 
 
 @pytest.mark.parametrize("path", CHECK_SCRIPTS, ids=lambda p: p.name)
@@ -92,6 +104,26 @@ def test_check_scripts_import_no_jax(path):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("name", sorted(JAX_CHECK_PORTS))
+def test_check_scripts_run_on_cuda_and_raise_without_gpu(monkeypatch, tmp_path, name):
+    """The five ports of the JAX check scripts run on cuda by default and
+    raise without a GPU before they write or read anything; none writes a
+    JAX artefact by default."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name[:-3], ROOT / "scripts" / name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(JAX_CHECK_PORTS[name] + ["--out", str(tmp_path / "out.json")])
+    assert not list(tmp_path.iterdir())
+    default_out = re.search(r'"--out", default=os\.path\.join\(_ROOT, "(\w+\.json)"\)',
+                            (ROOT / "scripts" / name).read_text())
+    assert default_out and default_out.group(1).startswith("TORCH_")
 
 
 def test_detector_raises_without_gpu(monkeypatch):

@@ -162,3 +162,95 @@ def test_dataset_identical_with_and_without_native(tmp_path, monkeypatch, mode):
         assert getattr(a, field).tobytes() == getattr(b, field).tobytes(), field
     for x, y in zip(items[0][:2], items[1][:2]):
         assert x.tobytes() == y.tobytes()
+
+
+def _reply_rows(dets):
+    return np.asarray([[d["class_id"], d["score"], d["x"], d["y"], d["z"], d["h"], d["w"], d["l"], d["yaw"]]
+                       for d in dets], np.float32)
+
+
+@pytest.fixture()
+def one_torch_thread():
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_servers_read_bin_scans_natively(tmp_path, monkeypatch, one_torch_thread):
+    """Both servers' `.bin` requests take the native fused read (the raw
+    scan never materialised) and answer exactly as the numpy route does:
+    the read scan submitted as points, and submit_file under
+    SFA3D_TPU_NO_NATIVE."""
+    from sfa3d_tpu_torch.data.synthetic import synthetic_scene
+    from sfa3d_tpu_torch.detector import Detector, FusedDetector
+    from sfa3d_tpu_torch.geometry.calibration import KittiCalibration
+    from sfa3d_tpu_torch.runtime import serving
+    from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer, BatchingFusedServer
+
+    scan, _ = synthetic_scene(seed=3)
+    path = str(tmp_path / "000003.bin")
+    scan.astype(np.float32).tofile(path)
+    reads = []
+    real_read = native.read_velodyne_filtered
+    monkeypatch.setattr(native, "read_velodyne_filtered", lambda *a: reads.append(a[0]) or real_read(*a))
+    image = np.random.default_rng(0).integers(0, 256, (375, 1242, 3), dtype=np.uint8)
+    calib = KittiCalibration(None)
+
+    lidar = BatchingDetectorServer(Detector(device="cpu", peak_thresh=0.0, seed=1), max_batch=2)
+    fused = BatchingFusedServer(FusedDetector(device="cpu", imgsz=(64, 192)), max_batch=2)
+    try:
+        got = [lidar.submit_file(path).result(timeout=300),
+               fused.submit_fused_file(path, image, calib).result(timeout=300)]
+        assert reads == [path, path]
+        want = [lidar.submit(np.fromfile(path, np.float32).reshape(-1, 4)).result(timeout=300),
+                fused.submit_fused(np.fromfile(path, np.float32).reshape(-1, 4), image, calib).result(timeout=300)]
+        monkeypatch.setenv("SFA3D_TPU_NO_NATIVE", "1")
+        numpy_route = [lidar.submit_file(path).result(timeout=300),
+                       fused.submit_fused_file(path, image, calib).result(timeout=300)]
+        assert reads == [path, path]
+    finally:
+        lidar.stop()
+        fused.stop()
+    assert len(got[0]) == 50
+    for replies in (want, numpy_route):
+        assert _reply_rows(got[0]).tobytes() == _reply_rows(replies[0]).tobytes()
+        assert got[1].keys() == replies[1].keys()
+        for key in got[1]:
+            np.testing.assert_array_equal(np.asarray(got[1][key]), np.asarray(replies[1][key]), err_msg=key)
+    assert serving.read_scan_filtered(path, 32768)[0].tobytes() == filter_and_pad_points(
+        np.fromfile(path, np.float32).reshape(-1, 4), max_points=32768)[0].tobytes()
+
+
+@pytest.mark.parametrize("case", ["ragged", "missing"])
+def test_server_bin_read_fails_as_the_dataset_read(tmp_path, case):
+    """A malformed or missing `.bin` fails at submit_file with the error
+    KittiDataset's read gives for the same file."""
+    from sfa3d_tpu_torch.data.kitti import KittiDataset
+    from sfa3d_tpu_torch.data.synthetic import write_mini_kitti
+    from sfa3d_tpu_torch.runtime.serving import BatchingDetectorServer, BatchingFusedServer
+
+    class _Unused:  # the request fails on the caller's thread, before any device call
+        max_points = cnf.MAX_POINTS_FILTERED
+
+    root = write_mini_kitti(str(tmp_path / "kitti"), n_frames=1, cameras=False)
+    path = tmp_path / "kitti" / "training" / "velodyne" / "000000.bin"
+    if case == "ragged":
+        path.write_bytes(path.read_bytes()[:-3])
+    else:
+        path.unlink()
+    with pytest.raises(Exception) as dataset_err:
+        KittiDataset(root, mode="val", lidar_aug=None, hflip_prob=0.0)[0]
+    lidar, fused = BatchingDetectorServer(_Unused(), max_batch=1), BatchingFusedServer(_Unused(), max_batch=1)
+    try:
+        for submit in (lambda: lidar.submit_file(str(path)),
+                       lambda: fused.submit_fused_file(str(path), np.zeros((8, 8, 3), np.uint8), None)):
+            with pytest.raises(type(dataset_err.value)) as server_err:
+                submit()
+            assert str(server_err.value) == str(dataset_err.value)
+    finally:
+        lidar.stop()
+        fused.stop()
+    assert isinstance(dataset_err.value, ValueError if case == "ragged" else OSError)
