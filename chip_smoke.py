@@ -5226,8 +5226,9 @@ def phase_checks(card, tmp_root, kitti_root, yolo_weights):
           "generalize": {"killed_after_epoch": gen["killed_after_epoch"], "resume_history": gen["resume_history"],
                          "val_mAP": [r["val_mAP"] for r in gen["val_map_curve"]],
                          "train_seconds": gen["train_seconds"], "eval_seconds": gen["eval_seconds"]},
-          "trained_parity": {k: parity[k] for k in ("frames", "total_detections_compared", "worst_abs_diff",
-                                                    "raster_card_vs_cpu")},
+          "trained_parity": {**{k: parity[k] for k in ("frames", "total_detections_compared", "worst_abs_diff",
+                                                       "raster_card_vs_cpu")},
+                             "heatmap_worst_gap": parity["heatmap_card_vs_cpu"]["heatmap_worst_gap"]},
           "tracking": {"summary_card": track_card["summary"]["overall"],
                        "summary_cpu": track_cpu["summary"]["overall"], "ids_equal": True},
           "fusion": {k: fusion[k]["mAP"] for k in ("lidar_only", "reference_max_rule", "monotone_demote_rule",

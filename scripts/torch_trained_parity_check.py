@@ -24,6 +24,22 @@ weights with --use_ema) and, for each held-out frame:
    decoded peaks whose score is the clamped sigmoid's ceiling (1 - 1e-4),
    by class: a plateau of such cells makes each of them a peak.
 
+Two witnesses tell a tie that float noise flips from a fault of the card:
+
+- heatmap card vs CPU: the largest gap of the clamped-sigmoid heatmap
+  between the sides over every cell, and each heatmap peak (a cell equal to
+  its 3 x 3 maximum, as `ops/decode.py::heat_nms` keeps it) above the
+  threshold on one side only, with its value and its margin over its 8
+  neighbours on both sides. A flip needs margins of opposite sign, so both
+  lie within twice the gap: a gap of float noise (1e-6) makes every flip a
+  tie of that size, a fault shows as a large gap;
+- CPU vs CPU, one ulp: the CPU side again on the same BEV with every
+  nonzero cell moved up by one float32 ulp (`torch.nextafter`), compared as
+  the card is. Where the checkpoint's peaks are as fragile on the CPU alone,
+  the card's count mismatches are not the card's.
+
+Neither enters the gate: `pass` is the card-vs-CPU comparison alone.
+
     python3 scripts/torch_trained_parity_check.py --dataset_dir RUN/kitti \\
         --pretrained_path RUN/checkpoints/gen/Model_gen_epoch_N.pth --use_ema --num_samples 64
 
@@ -43,8 +59,10 @@ import argparse
 import json
 import os
 import sys
+from typing import Dict
 
 import numpy as np
+import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
@@ -90,13 +108,96 @@ def compare_detections(ours: np.ndarray, ref: np.ndarray):
 def detect_rows(model, bev, K: int, peak_thresh: float):
     """(H, W, 3) BEV on the model's device -> the frame's masked metric
     rows (N, 8) [cls, x, y, z, h, w, l, yaw] (KFPN -> decode ->
-    detections_to_real) and all K decoded peaks (K, 10) [score, ..., cls],
-    in descending score order."""
-    from sfa3d_tpu_torch.pipeline import detect_bev
+    detections_to_real), all K decoded peaks (K, 10) [score, ..., cls] in
+    descending score order, and the clamped-sigmoid heatmap (H/4, W/4, C)
+    that decode read."""
+    from sfa3d_tpu_torch.models import clamped_sigmoid
+    from sfa3d_tpu_torch.pipeline import _decode_heads, forward_heads
 
-    dets, _, boxes_real, mask = detect_bev(model, bev[None], K=K, peak_thresh=peak_thresh)
+    with torch.inference_mode():
+        heads = forward_heads(model, bev[None])
+        dets, _, boxes_real, mask = _decode_heads(heads, K, peak_thresh)
+        heat = clamped_sigmoid(heads["hm_cen"])[0].float().cpu().numpy()
     dets = dets[0].cpu().numpy()
-    return boxes_real[0][mask[0]].cpu().numpy(), dets[np.argsort(-dets[:, 0], kind="stable")]
+    return boxes_real[0][mask[0]].cpu().numpy(), dets[np.argsort(-dets[:, 0], kind="stable")], heat
+
+
+def neighbour_max(heat: np.ndarray) -> np.ndarray:
+    """(H, W, C) -> the largest of each cell's 8 neighbours (-inf outside),
+    per class."""
+    h, w, _ = heat.shape
+    p = np.pad(heat, ((1, 1), (1, 1), (0, 0)), constant_values=-np.inf)
+    return np.max([p[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+                   for dy in (-1, 0, 1) for dx in (-1, 0, 1) if dy or dx], axis=0)
+
+
+def peak_flips(ours: np.ndarray, ref: np.ndarray, thresh: float) -> Dict[str, object]:
+    """Two sides' (H, W, C) heatmaps -> their largest gap, the peaks above
+    `thresh` on one side only (cells equal to their 3 x 3 maximum), each
+    with its value and its margin over its 8 neighbours on both sides, and
+    the margins of `ref`'s peaks above `thresh`."""
+    m_ours, m_ref = ours - neighbour_max(ours), ref - neighbour_max(ref)
+    peak_ours, peak_ref = m_ours >= 0, m_ref >= 0
+    flips = np.argwhere((peak_ours != peak_ref) & (np.maximum(ours, ref) > thresh))
+    return {
+        "gap": float(np.abs(ours - ref).max()),
+        "flips": [{"y": int(y), "x": int(x), "cls": int(c), "ours": float(ours[y, x, c]),
+                   "ref": float(ref[y, x, c]), "ours_margin": float(m_ours[y, x, c]),
+                   "ref_margin": float(m_ref[y, x, c])} for y, x, c in flips],
+        "ref_peak_margins": m_ref[peak_ref & (ref > thresh)].astype(np.float64),
+    }
+
+
+def one_ulp_up(bev):
+    """Every nonzero cell of a BEV moved up by one float32 ulp."""
+    return torch.where(bev != 0, torch.nextafter(bev, torch.full_like(bev, float("inf"))), bev)
+
+
+class Witness:
+    """Accumulates `peak_flips` and the detection comparison of one pair of
+    sides over the frames."""
+
+    def __init__(self, keep: int = 16):
+        self.keep = keep
+        self.gap, self.n_flips, self.flip_frames, self.flip_margin, self.flips = 0.0, 0, [], 0.0, []
+        self.mismatches, self.differing, self.worst, self.margins = [], [], 0.0, []
+
+    def add(self, frame: int, flips, d, count, atol: float) -> None:
+        self.gap = max(self.gap, flips["gap"])
+        self.margins.append(flips["ref_peak_margins"])
+        if flips["flips"]:
+            self.n_flips += len(flips["flips"])
+            self.flip_frames.append(frame)
+            self.flip_margin = max(self.flip_margin, *(max(abs(f["ours_margin"]), abs(f["ref_margin"]))
+                                                       for f in flips["flips"]))
+            self.flips += [{"frame": frame, **f} for f in flips["flips"]][:max(0, self.keep - len(self.flips))]
+        if count is not None:
+            self.mismatches.append(frame)
+        elif d > atol:
+            self.differing.append(frame)
+        else:
+            self.worst = max(self.worst, d)
+
+    def report(self, thresh: float) -> Dict[str, object]:
+        margins = np.concatenate(self.margins) if self.margins else np.zeros(0)
+        return {
+            "heatmap_worst_gap": self.gap,
+            "peak_flips_above_threshold": self.n_flips,
+            "frames_with_flips": len(self.flip_frames),
+            # the largest |margin over the 8 neighbours| of a flipped peak, on either side
+            "flipped_peaks_worst_margin": self.flip_margin,
+            "frames_with_count_mismatch": len(self.mismatches),
+            "frames_beyond_atol": len(self.differing),
+            "worst_abs_diff_within_atol": self.worst,
+            # the reference side's peaks above the threshold, and how many of them lie within
+            # twice the heatmap's worst gap of a neighbour: the ties the gap can flip
+            "ref_peaks_above_threshold": int(margins.size),
+            "ref_peaks_within_two_gaps": int((margins <= 2 * self.gap).sum()),
+            "ref_peak_margin_quantiles": {str(q): float(np.quantile(margins, q)) if margins.size else None
+                                          for q in (0.0, 0.01, 0.05, 0.5)},
+            "threshold": thresh,
+            "flips": self.flips,
+        }
 
 
 def saturated(peaks: np.ndarray) -> np.ndarray:
@@ -124,7 +225,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    import torch
     import torch_check_common as common
 
     from sfa3d_tpu_torch.cli.eval import load_model
@@ -140,6 +240,7 @@ def main(argv=None) -> int:
     launches0 = common.launches()
     n_det_total, worst, raster_worst, density_worst, score_worst = 0, 0.0, 0.0, 0.0, 0.0
     per_frame, mismatches, ceiling_classes = [], [], []
+    card_vs_cpu, one_ulp = Witness(), Witness()
     for idx in range(len(dataset)):
         sample = dataset[idx]
         pts, valid = torch.from_numpy(sample.points), torch.from_numpy(sample.valid)
@@ -150,8 +251,14 @@ def main(argv=None) -> int:
         gap = (bev_host - bev_cpu).abs()
         raster_worst = max(raster_worst, float(gap[..., :2].max()))
         density_worst = max(density_worst, float(gap[..., 2].max()))
-        ours, ours_peaks = detect_rows(model, bev, args.K, args.peak_thresh)
-        ref, ref_peaks = detect_rows(model_cpu, bev_host.clone(), args.K, args.peak_thresh)
+        ours, ours_peaks, ours_heat = detect_rows(model, bev, args.K, args.peak_thresh)
+        ref, ref_peaks, ref_heat = detect_rows(model_cpu, bev_host.clone(), args.K, args.peak_thresh)
+        ulp, _, ulp_heat = detect_rows(model_cpu, one_ulp_up(bev_host), args.K, args.peak_thresh)
+        frame = int(sample.sample_id)
+        card_vs_cpu.add(frame, peak_flips(ours_heat, ref_heat, args.peak_thresh), *compare_detections(ours, ref),
+                        args.atol)
+        one_ulp.add(frame, peak_flips(ulp_heat, ref_heat, args.peak_thresh), *compare_detections(ulp, ref),
+                    args.atol)
         score_worst = max(score_worst, float(np.abs(ours_peaks[:, 0] - ref_peaks[:, 0]).max()))
         ceiling_classes += saturated(ours_peaks)[:, 9].astype(int).tolist()
         d, count = compare_detections(ours, ref)
@@ -192,6 +299,8 @@ def main(argv=None) -> int:
         "peaks_at_ceiling": {"total": len(ceiling_classes),
                              "by_class": {str(c): ceiling_classes.count(c) for c in sorted(set(ceiling_classes))}},
         "pass": bool(ok),
+        "heatmap_card_vs_cpu": card_vs_cpu.report(args.peak_thresh),
+        "cpu_vs_cpu_one_ulp": one_ulp.report(args.peak_thresh),
         "raster_card_vs_cpu": {"height_intensity_bit_exact": raster_exact, "height_intensity_worst": raster_worst,
                                "density_worst": density_worst, "density_tol": DENSITY_TOL, "pass": raster_ok},
         "note": (
@@ -210,6 +319,9 @@ def main(argv=None) -> int:
           f"({len(mismatches)} with a count mismatch), worst |diff| {worst:.2e}, top-K scores {score_worst:.2e}, "
           f"raster height / intensity {'bit-exact' if raster_exact else f'differ by {raster_worst}'}, density "
           f"within {density_worst:.2e} -> {'PASS' if ok else 'FAIL'}")
+    for name, w in (("card vs CPU", card_vs_cpu), ("CPU vs CPU one ulp", one_ulp)):
+        print(f"{name}: heatmap gap {w.gap:.2e}, {w.n_flips} peak flips over {len(w.flip_frames)} frames "
+              f"(margins within {w.flip_margin:.2e}), {len(w.mismatches)} frames with a count mismatch")
     return 0 if ok else 1
 
 

@@ -1,7 +1,8 @@
 """scripts/torch_trained_parity_check.py on the CPU: its comparison (equal
 detections pass; a planted 2e-3 difference, a yaw 2e-3 across the +-pi cut
 and a count mismatch fail; +pi against -pi and rows whose sort order is
-float noise pass), its main end to end, and the port's per-frame
+float noise pass), its heatmap witness (a tie an ulp wide against a
+planted fault), its main end to end, and the port's per-frame
 detections on one BEV within the repo's 1e-3 of JAX's `detect_bev` on the
 same BEV and weights (a JAX init carried over by `state_dict_from_jax`,
 heatmap bias +2.0)."""
@@ -81,6 +82,41 @@ def test_comparison_passes_and_fails_as_it_should():
     assert cmp(row, noisy)[0] < 1e-5
 
 
+def test_heatmap_witness_tells_a_tie_from_a_fault():
+    mod = _load()
+    rng = np.random.default_rng(1)
+    ref = rng.uniform(0.0, 0.1, (12, 16, 3)).astype(np.float32)
+    ref[4, 5, 1], ref[4, 6, 1] = 0.6, np.nextafter(np.float32(0.6), np.float32(1))  # a near-tie pair
+    ref[9, 12, 2] = 0.7
+    ours = ref.copy()
+    ours[4, 5, 1] = ref[4, 6, 1]  # one ulp up: an exact tie, both cells peaks
+    tie = mod.peak_flips(ours, ref, 0.2)
+    assert tie["gap"] == pytest.approx(6e-8, rel=0.2) and len(tie["flips"]) == 1
+    flip = tie["flips"][0]
+    assert (flip["y"], flip["x"], flip["cls"]) == (4, 5, 1)
+    assert max(abs(flip["ours_margin"]), abs(flip["ref_margin"])) <= 2 * tie["gap"]
+    assert sorted(tie["ref_peak_margins"] >= 0) == [True, True]  # (4, 6, 1) and (9, 12, 2)
+
+    fault = ours.copy()
+    fault[9, 12, 2], fault[2, 2, 0] = 0.05, 0.5  # one peak lost, another made: a large gap
+    far = mod.peak_flips(fault, ref, 0.2)
+    assert far["gap"] == pytest.approx(0.65, abs=1e-6) and len(far["flips"]) == 3
+    assert max(max(abs(f["ours_margin"]), abs(f["ref_margin"])) for f in far["flips"]) > 0.3
+
+    w = mod.Witness(keep=2)
+    w.add(7, tie, 0.0, None, 1e-3)
+    w.add(8, far, None, {"ours": 2, "ref": 1}, 1e-3)
+    rep = w.report(0.2)
+    assert rep["heatmap_worst_gap"] == far["gap"] and rep["peak_flips_above_threshold"] == 4
+    assert rep["frames_with_flips"] == 2 and rep["frames_with_count_mismatch"] == 1 and len(rep["flips"]) == 2
+    assert rep["ref_peaks_above_threshold"] == 4 and rep["ref_peaks_within_two_gaps"] == 4
+
+    bev = torch.tensor([[0.0, 1.0], [0.5, -2.0]])
+    up = mod.one_ulp_up(bev)
+    assert up[0, 0] == 0 and bool((up[bev != 0] > bev[bev != 0]).all())
+    assert torch.equal(up[bev != 0], torch.nextafter(bev, torch.full_like(bev, float("inf")))[bev != 0])
+
+
 def _jax_kfpn():
     from sfa3d_tpu.models import create_model as jcreate_model
     from sfa3d_tpu.pipeline import init_detector
@@ -131,6 +167,11 @@ def test_port_detections_on_one_bev_match_jax_and_main_runs(tmp_path):
     assert rep["worst_abs_diff"] == 0.0 and rep["count_mismatch"] is None and rep["count_mismatches"] == []
     assert rep["worst_topk_score_diff"] == 0.0 and rep["peaks_at_ceiling"]["total"] >= 0
     assert rep["raster_card_vs_cpu"]["pass"] and rep["device"] == {"platform": "cpu"}
+    same = rep["heatmap_card_vs_cpu"]  # both sides on the CPU: one heatmap
+    assert same["heatmap_worst_gap"] == 0.0 and same["peak_flips_above_threshold"] == 0
+    assert same["ref_peaks_above_threshold"] >= rep["total_detections_compared"]
+    ulp = rep["cpu_vs_cpu_one_ulp"]
+    assert 0.0 < ulp["heatmap_worst_gap"] < 1e-3 and ulp["ref_peaks_above_threshold"] == same["ref_peaks_above_threshold"]
     for key in ("checkpoint", "use_ema", "atol", "worst_frames", "note", "launches"):
         assert key in rep
 
@@ -140,9 +181,9 @@ def test_port_detections_on_one_bev_match_jax_and_main_runs(tmp_path):
     real_rows, calls = mod.detect_rows, []
 
     def one_side_short(model, bev, K, peak_thresh):
-        rows, peaks = real_rows(model, bev, K, peak_thresh)
+        rows, peaks, heat = real_rows(model, bev, K, peak_thresh)
         calls.append(1)
-        return (rows[:-1], peaks) if len(calls) == 2 else (rows, peaks)
+        return (rows[:-1], peaks, heat) if len(calls) == 2 else (rows, peaks, heat)
 
     mod.detect_rows = one_side_short
     rc = mod.main(["--dataset_dir", root, "--pretrained_path", str(ckpt), "--num_samples", "2",
