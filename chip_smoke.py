@@ -97,6 +97,23 @@ Phases, each printing one JSON line:
           ranks identical, step ms of each; (c) one epoch of the training
           CLI with --mesh_shape 1 under SFA3D_DIST, whose checkpoint
           Detector loads
+  dp_sp   data x spatial parallelism (make_mesh_2d(2, 2), the BEV and image
+          rows split over 'spatial') with four gloo ranks sharing the card,
+          spawned once: the row exchange (fetch_rows, gather_rows, forward
+          and backward) on the card, through host memory, bit-equal to the
+          CPU route and to slicing; scripts/torch_spatial_parity_check.py's
+          float64 proof at 64 x 64 (dp and dp x sp steps against the
+          unsharded step: loss 1e-12, updates 1e-9 relative); the full-width
+          step (608 x 608, 2 frames a data index, strict fp32, SGD and EMA,
+          one raster launch a rank) with its loss within 1e-4 of the
+          one-process card step and the EMA recurrence exact; the fused
+          program at batch 8 (608 x 608, the 224 x 640 canvas, fused_serve's
+          conditioned weights) against the one-device program: valid and
+          the 3D masks equal, metric boxes within 1e-3, the networks within
+          1e-3, the integer boxes equal to the one-device program's given
+          the rank's network outputs and directly within a pixel (the flips
+          counted); each kernel launched once a rank. Step ms, exchanges,
+          bytes and host-staging ms per step, fused ms
   native  the native host reader (native/preproc.cpp, g++ at first use) on
           64 seeded KITTI-sized .bin scans (about 120k points; one overflows
           MAX_POINTS_FILTERED, one holds NaN rows): the fused read and the
@@ -2002,47 +2019,18 @@ def dp_replay(case, mesh=None):
         torch.backends.cudnn.deterministic = False
 
 
-def dp_rank(rank, init_method, case_path, prefix):
-    """One of DP_RANKS spawned ranks sharing the card over gloo (NCCL
-    refuses two ranks on one GPU): dp_replay over the group, saved with the
-    rank, the world size and whether jax was imported to
-    `<prefix>.rank<r>.pt`."""
-    import os
+def dp_rank(case_path, prefix):
+    """One of DP_RANKS ranks sharing the card over gloo (NCCL refuses two
+    ranks on one GPU; `mesh.spawn_ranks(..., backend="gloo")` joins them):
+    dp_replay over the group, saved with the rank, the world size and
+    whether jax was imported to `<prefix>.rank<r>.pt`."""
+    from sfa3d_tpu_torch.parallel.mesh import make_mesh
 
-    from sfa3d_tpu_torch.parallel.mesh import INIT_TIMEOUT, make_mesh
-
-    torch.cuda.set_device(0)
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks meet on the loopback
-    torch.distributed.init_process_group("gloo", init_method=init_method, world_size=DP_RANKS, rank=rank,
-                                         timeout=INIT_TIMEOUT)
-    try:
-        mesh = make_mesh()
-        out = dp_replay(torch.load(case_path, weights_only=False), mesh)
-        out.update(rank=mesh.rank, world_size=mesh.world_size,
-                   jax_imported=any(m == "jax" or m.startswith(("jax.", "sfa3d_tpu.")) for m in sys.modules))
-        torch.save(out, f"{prefix}.rank{rank}.pt")
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def _spawn_dp_ranks(case_path, prefix, timeout=DP_TIMEOUT):
-    """Start DP_RANKS dp_rank processes (the spawn start method) and wait;
-    kill every rank still running after `timeout` seconds and raise."""
-    from sfa3d_tpu_torch.parallel.mesh import free_port
-
-    ctx = torch.multiprocessing.start_processes(
-        dp_rank, args=(f"tcp://127.0.0.1:{free_port()}", case_path, prefix), nprocs=DP_RANKS, join=False,
-        start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=1.0):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"{DP_RANKS} ranks still running after {timeout} s; killed")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
+    mesh = make_mesh()
+    out = dp_replay(torch.load(case_path, weights_only=False), mesh)
+    out.update(rank=mesh.rank, world_size=mesh.world_size,
+               jax_imported=any(m == "jax" or m.startswith(("jax.", "sfa3d_tpu.")) for m in sys.modules))
+    torch.save(out, f"{prefix}.rank{mesh.rank}.pt")
 
 
 def _run_session(cmd, env, timeout=DP_TIMEOUT):
@@ -2104,8 +2092,10 @@ def phase_dp_train(card, tmp_root, root):
             "bev_size": (H, W)}
     case_path, prefix = os.path.join(tmp_root, "dp_case.pt"), os.path.join(tmp_root, "dp_rank")
     torch.save(case, case_path)
+    from sfa3d_tpu_torch.parallel.mesh import spawn_ranks
+
     t0 = time.perf_counter()
-    _spawn_dp_ranks(case_path, prefix)
+    spawn_ranks(dp_rank, DP_RANKS, args=(case_path, prefix), device=DEVICE, timeout=DP_TIMEOUT, backend="gloo")
     ranks_s = time.perf_counter() - t0
     ranks = [torch.load(f"{prefix}.rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
     one = dp_replay(case)
@@ -2143,6 +2133,353 @@ def phase_dp_train(card, tmp_root, root):
                                          "one_process_prepare_ms": one["prepare_ms"], "seconds": ranks_s},
           "cli_sfa3d_dist_mesh_shape_1_epoch_seconds": cli_s, "card": card["nvidia_smi"]})
     return [r["raster_launches"] for r in ranks]
+
+
+DPSP_SHAPE = (2, 2)  # data x spatial: four gloo ranks sharing the card
+DPSP_FRAMES = 4  # the full-width step's global batch at 608 x 608: 2 frames a data index
+DPSP_FUSED_FRAMES = 8  # the fused program's batch: 4 frames a data index
+DPSP_TIMED_STEPS = 2  # steps timed after the compared one
+DPSP_EMA = (0.999, 2000.0)  # the full-width step's EMA decay and tau
+DPSP_LOSS_RTOL = 1e-4  # loss terms, dp x sp step vs the one-process card step, strict fp32
+DPSP_BOX_TOL = 1e-3  # metric 3D boxes, dp x sp program vs one device
+DPSP_PIXEL_FLIP = 1.0  # integer fused boxes vs one device: a truncation may flip a pixel (float noise)
+DPSP_EXCHANGE_HEIGHTS = (2, 5, 38, 152)  # the exchange check's map heights over 2 spatial ranks
+DPSP_TIMEOUT = 400  # s for the four ranks, their start, imports and CUDA contexts included
+
+
+def _exchange_card_vs_cpu(mesh):
+    """fetch_rows and gather_rows, forward and backward, on small-integer
+    maps on the card (gloo: rows staged through host memory) and on the CPU
+    (gloo send / recv), over requests that cross every owner and reach past
+    both ends: both bit-equal to slicing and to each other."""
+    from sfa3d_tpu_torch.spatial import fetch_rows, gather_rows, row_range, row_sharded
+
+    n, s = mesh.spatial_size, mesh.spatial_index
+    checked = 0
+    for height in DPSP_EXCHANGE_HEIGHTS:
+        rng = np.random.default_rng(height)
+        x = torch.from_numpy(rng.integers(-8, 9, (2, 3, height, 16)).astype(np.float32))
+        spans = [(-3, 2), (1, height + 2), (height - 1, height + 4), (0, 0)]
+        requests = [spans[(q + height) % len(spans)] for q in range(n)]
+        lo, hi = row_range(height, n, s)
+        grads = [torch.from_numpy(rng.integers(-8, 9, (2, 3, max(0, b - a), 16)).astype(np.float32))
+                 for a, b in requests]
+        results = []
+        for dev in (mesh.device, torch.device("cpu")):
+            local = x[..., lo:hi, :].to(dev).requires_grad_(True)
+            with row_sharded(mesh, height, 16) as sh:
+                got = fetch_rows(local, height, requests, float("-inf"))
+                got.backward(grads[s].to(dev))
+                local2 = x[..., lo:hi, :].to(dev).requires_grad_(True)
+                whole = gather_rows(local2, sh)
+                whole.backward(torch.ones_like(whole))
+            results.append([t.detach().cpu() for t in (got, local.grad, whole, local2.grad)])
+        a, b = requests[s]
+        want = torch.full((2, 3, b - a, 16), float("-inf"))
+        r0, r1 = max(a, 0), min(b, height)
+        if r1 > r0:
+            want[..., r0 - a:r1 - a, :] = x[..., r0:r1, :]
+        card, cpu = results
+        if not (all(torch.equal(c, h) for c, h in zip(card, cpu)) and torch.equal(card[0], want)
+                and torch.equal(card[2], x)):
+            raise AssertionError(f"the row exchange at height {height}: card and CPU or slicing differ")
+        checked += 1
+    return checked
+
+
+def _record_networks(program, rec):
+    """Have `program` (a FusedProgram) keep the KFPN heads and YOLO levels
+    it computes in `rec` on the host."""
+    heads, levels = program.kfpn_heads, program.yolo_levels
+
+    def kfpn_heads(bev):
+        rec["heads"] = {k: v.cpu() for k, v in heads(bev).items()}
+        return {k: v.to(bev.device) for k, v in rec["heads"].items()}
+
+    def yolo_levels(images):
+        rec["levels"] = [(b.cpu(), c.cpu()) for b, c in levels(images)]
+        return [(b.to(images.device), c.to(images.device)) for b, c in rec["levels"]]
+
+    program.kfpn_heads, program.yolo_levels = kfpn_heads, yolo_levels
+
+
+def _run_fused_program(program, inputs, dev, sl=slice(None)):
+    """FusedProgram on frames `sl` of the host batch `inputs`, as
+    build_fused_pipeline's run feeds it -> host dict of numpy arrays."""
+    points, valid, *rest = inputs
+    with torch.inference_mode():
+        out = program(torch.as_tensor(points[sl]).to(dev), torch.as_tensor(valid[sl]).to(dev),
+                      *(torch.as_tensor(a[sl]).to(dev, torch.float32) for a in rest))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _dpsp_fused_models(case, dev):
+    from sfa3d_tpu_torch.models.yolov8 import YOLOv8
+
+    kfpn = create_model("fpn_resnet_18")
+    kfpn.load_state_dict(case["fused_kfpn"])
+    yolo = YOLOv8("n", 80)
+    yolo.load_state_dict(case["fused_yolo"])
+    return kfpn.to(dev).eval(), yolo.to(dev).eval()
+
+
+def dp_sp_rank(case_path, prefix):
+    """One of four gloo ranks sharing the card (mesh.spawn_ranks(...,
+    backend="gloo")): the exchange card vs CPU, the float64 parity check's
+    ranks (scripts/torch_spatial_parity_check.py), the full-width dp x sp
+    train step (strict fp32, SGD and EMA) and the fused program at batch 8
+    over make_mesh_2d(2, 2). Saves what it found to `<prefix>.rank<r>.pt`."""
+    from scripts.torch_spatial_parity_check import parity_rank
+    from sfa3d_tpu_torch import spatial
+    from sfa3d_tpu_torch.config.train import OptimConfig
+    from sfa3d_tpu_torch.fusion.batch import FusedProgram, build_fused_pipeline
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.parallel.mesh import make_mesh_2d, replicate, shard_batch
+    from sfa3d_tpu_torch.parallel.train_step import ema_decay_at
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    case = torch.load(case_path, weights_only=False)
+    mesh = make_mesh_2d(*DPSP_SHAPE, device=DEVICE)
+    dev = mesh.device
+    out = {"rank": mesh.rank, "data_index": mesh.data_index, "spatial_index": mesh.spatial_index}
+    t0 = time.perf_counter()
+    out["exchange_heights_checked"] = _exchange_card_vs_cpu(mesh)
+    out["exchange_check_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    parity_rank(case["parity_case"], case["parity_prefix"])
+    out["parity_s"] = time.perf_counter() - t0
+
+    model = _train_model(case["state_dict"]).to(dev)
+    spec = create_optimizer(OptimConfig(optimizer_type="sgd", lr=1e-2), num_epochs=10, steps_per_epoch=1)
+    state = create_train_state(model, spec, ema=True)
+    replicate(mesh, state)
+    step = make_train_step(model, spec, *DPSP_EMA, mesh=mesh)
+    bev_raster_reduce.launches = 0
+    batch = _dp_prepare(shard_batch(mesh, case["raw_batch"], axis=1), (H, W))
+    out["train_raster_launches"] = bev_raster_reduce.launches
+    out["train_local_rows"] = H // DPSP_SHAPE[1]
+    ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+    spatial.reset_exchange_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    state, stats = step(state, batch)
+    torch.cuda.synchronize(dev)
+    out["first_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["stats"] = {k: float(v) for k, v in stats.items()}
+    out["exchanges_per_step"] = dict(spatial.EXCHANGES)
+    one_minus_d = float(np.float32(1.0) - ema_decay_at(1, *DPSP_EMA))
+    out["ema_recurrence_exact"] = all(
+        torch.equal(state.ema_params[k], e + one_minus_d * (model.get_parameter(k).detach() - e))
+        for k, e in ema0.items())
+    out["state_dict"] = _sd_cpu(model) if mesh.rank == 0 else None
+    out["step_ms"], out["staging_ms"] = [], []
+    for _ in range(DPSP_TIMED_STEPS):
+        spatial.reset_exchange_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        end.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        out["staging_ms"].append(spatial.EXCHANGES["staging_s"] * 1e3)
+    del state, step, batch, model
+    torch.cuda.empty_cache()
+
+    kfpn, yolo = _dpsp_fused_models(case, dev)
+    networks, init = {}, FusedProgram.__init__
+
+    def recording_init(self, *args, **kwargs):  # the program build_fused_pipeline makes keeps its networks' outputs
+        init(self, *args, **kwargs)
+        _record_networks(self, networks)
+
+    FusedProgram.__init__ = recording_init
+    try:
+        run = build_fused_pipeline(kfpn, yolo, mesh=mesh, **case["fused_kw"])
+    finally:
+        FusedProgram.__init__ = init
+    counted = [bev_raster_reduce, fusion_loops.hard_nms_keep, fusion_loops.soft_nms_gaussian,
+               fusion_loops.greedy_match]
+    run(*case["fused_inputs"])  # warm
+    for fn in counted:
+        fn.launches = 0
+    spatial.reset_exchange_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    got = run(*case["fused_inputs"])
+    torch.cuda.synchronize(dev)
+    out["fused_ms"] = (time.perf_counter() - t0) * 1e3
+    out["fused_launches"] = {fn.__name__: fn.launches for fn in counted}
+    out["fused_exchanges"] = dict(spatial.EXCHANGES)
+    out["fused"] = {k: v.cpu().numpy() for k, v in got.items()}
+    out["fused_networks"] = networks
+    out["jax_imported"] = any(m == "jax" or m.startswith(("jax.", "sfa3d_tpu.")) for m in sys.modules)
+    torch.save(out, f"{prefix}.rank{mesh.rank}.pt")
+
+
+def _dpsp_fused_case():
+    """Conditioned fused weights (fused_serve's) and a batch of
+    DPSP_FUSED_FRAMES frames: padded scans, letterboxed seeded images, the
+    default calibration."""
+    fd = FusedDetector(imgsz=CANVAS, device="cpu", seed=SEED)
+    reqs = fused_requests(DPSP_FUSED_FRAMES)
+    bump_fused_biases(fd, yolo_gate_bias(fd.yolo, reqs[0][1]))
+    pts, valid, imgs = [], [], []
+    for scan, image, _ in reqs:
+        p, v = bev_ops.filter_and_pad_points(scan, N)
+        pts.append(p)
+        valid.append(v)
+        img, r, pad = letterbox(image, CANVAS)
+        imgs.append(img)
+    calib, n = reqs[0][2], len(reqs)
+    inputs = (np.stack(pts), np.stack(valid), np.stack(imgs), np.stack([calib.V2C.astype(np.float32)] * n),
+              np.stack([calib.R0.astype(np.float32)] * n), np.stack([calib.P2.astype(np.float32)] * n),
+              np.float32([IMG_HW] * n), np.float32([r] * n), np.float32([pad] * n))
+    return {"fused_kfpn": fd.kfpn.state_dict(), "fused_yolo": fd.yolo.state_dict(), "fused_inputs": inputs,
+            "fused_kw": {}}
+
+
+def phase_dp_sp(card, tmp_root):
+    """Data x spatial parallelism (make_mesh_2d(2, 2)) with four gloo ranks
+    sharing the card: a check of correctness, not of multi-card speed.
+    Each rank: the row exchange card vs CPU; the float64 parity check at
+    64 x 64 (dp and dp x sp against the unsharded step, run here); the
+    full-width step (608 x 608, strict fp32, SGD and EMA, its 2 frames of a
+    global 4 prepared on the card: one raster launch) with its loss within
+    DPSP_LOSS_RTOL of this process's one-process step on the same batch and
+    the EMA recurrence exact, step ms, exchanges, bytes and host-staging ms
+    per step; the fused program at batch 8 (its 4 frames) against the
+    one-device program (valid and the 3D masks equal, metric boxes within
+    DPSP_BOX_TOL, the networks within NET_TOL, the integer boxes exact given
+    the rank's network outputs and within DPSP_PIXEL_FLIP directly), one
+    launch of each kernel a batch."""
+    import os
+
+    from scripts.torch_spatial_parity_check import make_case, report
+    from sfa3d_tpu_torch.config.train import OptimConfig
+    from sfa3d_tpu_torch.fusion.batch import FusedProgram, build_fused_pipeline
+    from sfa3d_tpu_torch.parallel import create_train_state, make_train_step
+    from sfa3d_tpu_torch.parallel.mesh import Mesh, shard_batch, spawn_ranks
+    from sfa3d_tpu_torch.runtime.schedules import create_optimizer
+
+    t_phase = time.perf_counter()
+    per = DPSP_FUSED_FRAMES // DPSP_SHAPE[0]
+    init_sd = create_model("fpn_resnet_18").init_weights(torch.Generator().manual_seed(SEED)).state_dict()
+    parity_case = {**make_case(64), "platform": DEVICE.type}
+    parity_path, parity_prefix = os.path.join(tmp_root, "dpsp_parity.pt"), os.path.join(tmp_root, "dpsp_parity")
+    torch.save(parity_case, parity_path)
+    case = {"state_dict": init_sd, "raw_batch": _dp_raw_batch(range(300, 300 + DPSP_FRAMES)),
+            "parity_case": parity_path, "parity_prefix": parity_prefix, **_dpsp_fused_case()}
+    case_path, prefix = os.path.join(tmp_root, "dpsp_case.pt"), os.path.join(tmp_root, "dpsp_rank")
+    torch.save(case, case_path)
+    world = DPSP_SHAPE[0] * DPSP_SHAPE[1]
+    t0 = time.perf_counter()
+    spawn_ranks(dp_sp_rank, world, args=(case_path, prefix), device=DEVICE, timeout=DPSP_TIMEOUT, backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{prefix}.rank{r}.pt", weights_only=False) for r in range(world)]
+    parity = report(parity_case, [torch.load(f"{parity_prefix}.rank{r}.pt", weights_only=False)
+                                  for r in range(world)], DEVICE)
+
+    # the one-process references on the card: the step on the whole batch, the fused program on one device
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = _train_model(init_sd).to(DEVICE)
+        spec = create_optimizer(OptimConfig(optimizer_type="sgd", lr=1e-2), num_epochs=10, steps_per_epoch=1)
+        state = create_train_state(model, spec, ema=True)
+        step = make_train_step(model, spec, *DPSP_EMA, device=DEVICE)
+        batch = _dp_prepare(shard_batch(Mesh(1, 0, DEVICE), case["raw_batch"], axis=1), (H, W))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = step(state, batch)
+        torch.cuda.synchronize()
+        one_first_step_ms = (time.perf_counter() - t0) * 1e3
+        one_stats, one_sd = {k: float(v) for k, v in stats.items()}, _sd_cpu(model)
+        one_step_ms = []
+        for _ in range(DPSP_TIMED_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, batch)
+            end.record()
+            end.synchronize()
+            one_step_ms.append(start.elapsed_time(end))
+        del state, step, batch, model
+        kfpn, yolo = _dpsp_fused_models(case, DEVICE)
+        run = build_fused_pipeline(kfpn, yolo, device=DEVICE, **case["fused_kw"])
+        run(*case["fused_inputs"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = {k: v.cpu().numpy() for k, v in run(*case["fused_inputs"]).items()}
+        torch.cuda.synchronize()
+        one_fused_ms = (time.perf_counter() - t0) * 1e3
+        one_networks = {}
+        program = FusedProgram(kfpn, yolo, **case["fused_kw"])
+        _record_networks(program, one_networks)
+        _run_fused_program(program, case["fused_inputs"], DEVICE)
+        replays = {}  # each data shard's detections from the one-device program given the ranks' network outputs
+        for r in ranks:
+            program = FusedProgram(kfpn, yolo, **case["fused_kw"])
+            given = r["fused_networks"]
+            program.kfpn_heads = lambda bev, _g=given: {k: v.to(bev.device) for k, v in _g["heads"].items()}
+            program.yolo_levels = lambda im, _g=given: [(b.to(im.device), c.to(im.device)) for b, c in _g["levels"]]
+            sl = slice(r["data_index"] * per, (r["data_index"] + 1) * per)
+            replays[r["rank"]] = _run_fused_program(program, case["fused_inputs"], DEVICE, sl)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    per_rank = []
+    for r in ranks:
+        if r["jax_imported"]:
+            raise AssertionError(f"rank {r['rank']} imported jax")
+        loss_rel = max(abs(r["stats"][k] - v) / abs(v) for k, v in one_stats.items())
+        if loss_rel > DPSP_LOSS_RTOL or not r["ema_recurrence_exact"]:
+            raise AssertionError(f"rank {r['rank']}: loss {loss_rel} relative to the one-process step, "
+                                 f"EMA recurrence exact {r['ema_recurrence_exact']}")
+        if r["train_raster_launches"] != 1 or any(v != 1 for v in r["fused_launches"].values()):
+            raise AssertionError(f"rank {r['rank']}: raster launches {r['train_raster_launches']} for one batch, "
+                                 f"fused launches {r['fused_launches']}")
+        # The rank's detections against the one-device program's: valid and the 3D masks equal, the
+        # metric boxes within DPSP_BOX_TOL; the integer boxes are truncated means and projections, where
+        # float noise in the networks may move a coordinate across an integer, so they are held exactly
+        # against the one-device program given this rank's network outputs (whose own difference from
+        # the one-device networks is held to NET_TOL), and directly within a pixel, the flips counted.
+        sl = slice(r["data_index"] * per, (r["data_index"] + 1) * per)
+        got, net_err = r["fused"], 0.0
+        for k, v in r["fused_networks"]["heads"].items():
+            net_err = max(net_err, (v - one_networks["heads"][k][sl]).abs().max().item())
+        for (b, c), (wb, wc) in zip(r["fused_networks"]["levels"], one_networks["levels"]):
+            net_err = max(net_err, (b - wb[sl]).abs().max().item(), (c - wc[sl]).abs().max().item())
+        replay_equal = all(np.array_equal(got[k], v) for k, v in replays[r["rank"]].items())
+        if not np.array_equal(got["valid"], want["valid"][sl]) or not np.array_equal(got["mask_3d"],
+                                                                                    want["mask_3d"][sl]):
+            raise AssertionError(f"rank {r['rank']}: the fused valid or 3D masks differ from one device")
+        box_diff = np.abs(np.where(got["valid"][..., None], got["boxes"] - want["boxes"][sl], 0))
+        box_err = float(np.abs(np.where(got["mask_3d"][..., None], got["boxes_real"] - want["boxes_real"][sl],
+                                        0)).max())
+        if (box_err > DPSP_BOX_TOL or box_diff.max() > DPSP_PIXEL_FLIP or net_err > NET_TOL
+                or not replay_equal):
+            raise AssertionError(f"rank {r['rank']}: 3D boxes {box_err}, fused boxes {box_diff.max()} px from one "
+                                 f"device; networks {net_err} apart; equal given its networks: {replay_equal}")
+        per_rank.append({"rank": r["rank"], "data_index": r["data_index"], "spatial_index": r["spatial_index"],
+                         "loss_max_rel_err": loss_rel, "ema_recurrence_exact": r["ema_recurrence_exact"],
+                         "first_step_ms": r["first_step_ms"], "step_ms": r["step_ms"],
+                         "exchanges_per_step": r["exchanges_per_step"], "staging_ms_per_step": r["staging_ms"],
+                         "fused_ms": r["fused_ms"], "fused_exchanges": r["fused_exchanges"],
+                         "fused_boxes_real_max_err": box_err, "fused_valid": int(got["valid"].sum()),
+                         "fused_box_coords_one_pixel_apart": int((box_diff > 0).sum()),
+                         "fused_networks_max_err": net_err, "fused_equal_given_its_networks": replay_equal,
+                         "fused_launches": r["fused_launches"], "train_raster_launches": r["train_raster_launches"],
+                         "exchange_heights_checked": r["exchange_heights_checked"], "parity_s": r["parity_s"]})
+    diffs = _step_differences(ranks[0]["state_dict"], one_sd, {k: v.cpu() for k, v in init_sd.items()},
+                              [k for k, _ in _train_model(init_sd).named_parameters()])
+    emit({"phase": "dp_sp", "mesh": list(DPSP_SHAPE), "note": "four gloo ranks sharing one card",
+          "parity_64_float64": parity, "train_bev": [H, W], "train_global_batch": DPSP_FRAMES,
+          "one_process_first_step_ms": one_first_step_ms, "one_process_step_ms": one_step_ms,
+          "rank0_state_vs_one_process": diffs,
+          "fused_batch": DPSP_FUSED_FRAMES, "one_device_fused_ms": one_fused_ms, "per_rank": per_rank,
+          "ranks_seconds": ranks_s, "seconds": time.perf_counter() - t_phase, "card": card["nvidia_smi"]})
+    return {"train": [r["train_raster_launches"] for r in ranks], "fused": [r["fused_launches"] for r in ranks]}
 
 
 def _kitti_sized_scan(rng, seed):
@@ -5258,6 +5595,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp_root:
         train_launches, train_batches, train_err, root = phase_train(card, tmp_root)
         dp_launches = phase_dp_train(card, tmp_root, root)
+        dpsp_launches = phase_dp_sp(card, tmp_root)
         phase_native(card, tmp_root, root)
         val, yolo_cli_launches, best_path = phase_yolo_train(card, root, f"{tmp_root}/yolo")
         nms_eval_shape, yolo_eval_launches = phase_yolo_eval(card, val, best_path)
@@ -5312,6 +5650,10 @@ def main() -> int:
             rec["launches_by_path"][path] = launches[rec["name"]]
         rec["launches_by_path"]["bf16_serve_fused"] = bf16_launches["fused"][rec["name"]]
         rec["launches_by_path"]["bf16_serve_cli"] = bf16_launches["serve_cli"][rec["name"]]
+    for rank, (train, fused_launches) in enumerate(zip(dpsp_launches["train"], dpsp_launches["fused"])):
+        raster_rec["launches_by_path"][f"dp_sp_train_rank{rank}"] = train
+        for rec in (raster_rec, *loop_recs):
+            rec["launches_by_path"][f"dp_sp_fused_rank{rank}"] = fused_launches[rec["name"]]
     raster_rec["launches_per_train_step"] = train_launches / train_batches
     raster_rec["max_abs_err"] = max(raster_rec["max_abs_err"], train_err)  # the training path's batches too
     track_rec["launches"] = serve_cli_assoc_launches

@@ -19,6 +19,15 @@ Frame inputs per batch element:
 
 Fused outputs are in original camera pixels, fixed (max_yolo + K) slots.
 
+With a (data x spatial) mesh (`parallel/mesh.py::make_mesh_2d`), JAX's
+`mesh=` program: each rank takes its data index's frames of the batch,
+rasterizes them (one raster launch), keeps its spatial index's BEV rows
+and letterboxed image rows, and runs both conv towers on them inside
+`spatial.py::row_sharded`; the KFPN heads and the YOLO levels are gathered
+whole, and the decode, projection, YOLO selection, match and soft-NMS run
+on the rank's frames, so every rank of a spatial group returns the same
+frames: its data shard's.
+
 Networks set to bfloat16 (`models::to_inference_dtype`) run as the JAX
 program's bfloat16 models: their BatchNorms, the level softmax, the heads'
 decode and the DFL softmax take float32, and every stage after the
@@ -44,7 +53,9 @@ from sfa3d_tpu_torch.fusion.fuse import (
 from sfa3d_tpu_torch.fusion.nms import hard_nms, soft_nms_gaussian
 from sfa3d_tpu_torch.models.yolov8 import decode_predictions, forward_levels, select_detections
 from sfa3d_tpu_torch.ops.bev import points_to_bev_nchw
+from sfa3d_tpu_torch.parallel.mesh import shard_batch
 from sfa3d_tpu_torch.pipeline import _check_model_device, _decode_heads, _heads_nhwc
+from sfa3d_tpu_torch.spatial import row_sharded, shard_rows
 
 FUSION_MODES = ("nms", "weighted", "bayesian")
 
@@ -114,7 +125,8 @@ class FusedProgram(torch.nn.Module):
     forward(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad)
     -> the dict `build_fused_pipeline`'s run returns. It holds both models,
     so the exported fused artifact (`runtime/export.py::export_fused`)
-    traces it with their weights."""
+    traces it with their weights. With `mesh` (a data x spatial mesh) the
+    inputs are the rank's data shard and both networks run on its rows."""
 
     def __init__(
         self,
@@ -135,11 +147,12 @@ class FusedProgram(torch.nn.Module):
         gaussian_sigma: float = 0.5,
         return_bev: bool = False,
         bev_size=(608, 608),
+        mesh=None,
     ):
         super().__init__()
         if mode not in FUSION_MODES:
             raise ValueError(f"unknown fusion mode: {mode!r}")
-        self.kfpn, self.yolo = kfpn_model, yolo_model
+        self.kfpn, self.yolo, self.mesh = kfpn_model, yolo_model, mesh
         self.K, self.max_yolo, self.peak_thresh = K, max_yolo, peak_thresh
         self.sfa_conf_gate, self.yolo_conf, self.yolo_iou = sfa_conf_gate, yolo_conf, yolo_iou
         self.return_bev, self.bev_size = return_bev, tuple(bev_size)
@@ -152,10 +165,23 @@ class FusedProgram(torch.nn.Module):
             gaussian_sigma=gaussian_sigma,
         )
 
+    def kfpn_heads(self, bev: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(B, 3, H, W) BEV -> the KFPN's NHWC heads of the B frames, whole:
+        with a mesh computed on the rank's rows and gathered."""
+        return _heads_nhwc(self.kfpn, bev, self.mesh)
+
+    def yolo_levels(self, images: torch.Tensor):
+        """(B, H, W, 3) letterboxed images -> YOLOv8's NHWC levels, whole:
+        with a mesh computed on the rank's rows and gathered."""
+        if self.mesh is None:
+            return forward_levels(self.yolo, images)
+        with row_sharded(self.mesh, *images.shape[1:3]):
+            return forward_levels(self.yolo, shard_rows(self.mesh, images, axis=1))
+
     def forward(self, points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad) -> Dict[str, torch.Tensor]:
         # --- SFA3D (LiDAR) branch ---
         bev = points_to_bev_nchw(points, valid, bev_height=self.bev_size[0], bev_width=self.bev_size[1])
-        _, boxes_bev, boxes_real, mask = _decode_heads(_heads_nhwc(self.kfpn, bev), self.K, self.peak_thresh)
+        _, boxes_bev, boxes_real, mask = _decode_heads(self.kfpn_heads(bev), self.K, self.peak_thresh)
         sfa_scores = boxes_bev[..., 1]
         sfa2d, sfa_valid = project_boxes_to_image(
             boxes_real, sfa_scores, mask, V2C, R0, P2,
@@ -163,7 +189,7 @@ class FusedProgram(torch.nn.Module):
         )
 
         # --- YOLOv8 (camera) branch ---
-        yboxes_all, yscores_all = decode_predictions(forward_levels(self.yolo, images))
+        yboxes_all, yscores_all = decode_predictions(self.yolo_levels(images))
         yb_xyxy, ys, yc, yv = select_detections(
             yboxes_all, yscores_all, conf_thresh=self.yolo_conf, iou_thresh=self.yolo_iou,
             max_det=self.max_yolo,
@@ -189,11 +215,17 @@ class FusedProgram(torch.nn.Module):
         return out
 
 
-def build_fused_pipeline(kfpn_model, yolo_model, *, device: Device = None, **program_kwargs):
+def build_fused_pipeline(kfpn_model, yolo_model, *, device: Device = None, mesh=None, **program_kwargs):
     """Build the batched fusion step. `program_kwargs` are `FusedProgram`'s
     (K, max_yolo, mode, use_gaussian_nms, peak_thresh, sfa_conf_gate,
     yolo_conf, yolo_iou, confidence_threshold, fusion_iou_threshold,
     nms_threshold, gaussian_sigma, return_bev, bev_size).
+
+    `mesh`: an optional data x spatial mesh (`parallel/mesh.py::make_mesh_2d`),
+    the counterpart of JAX's `mesh=`. Every rank passes the whole batch
+    (which must divide over 'data') and gets its data shard's frames back,
+    each rank of a spatial group the same; the models lie on the mesh's
+    device.
 
     Returns run(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad)
     -> dict of tensors on `device` with:
@@ -208,12 +240,16 @@ def build_fused_pipeline(kfpn_model, yolo_model, *, device: Device = None, **pro
     tensors. `bev_size` shrinks the raster for small checks; the metric
     decode constants assume 608x608.
     """
-    program = FusedProgram(kfpn_model, yolo_model, **program_kwargs)
+    program = FusedProgram(kfpn_model, yolo_model, mesh=mesh, **program_kwargs)
 
     def run(points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad) -> Dict[str, torch.Tensor]:
-        dev = resolve_device(device)
+        dev = resolve_device(device) if mesh is None else mesh.device
         _check_model_device(kfpn_model, dev)
         _check_model_device(yolo_model, dev)
+        if mesh is not None:
+            points, valid, images, V2C, R0, P2, img_hw, lb_scale, lb_pad = (
+                shard_batch(mesh, torch.as_tensor(a)) for a in (points, valid, images, V2C, R0, P2, img_hw,
+                                                               lb_scale, lb_pad))
 
         def f32(a):
             return torch.as_tensor(a).to(dev, torch.float32, non_blocking=True)

@@ -11,10 +11,12 @@
 
 Under a data-parallel group (`collectives.py::data_parallel`) the
 normalizers are global, as under JAX's data-sharded jit: `compute_loss`
-sums the positive count and the object count over the ranks in one
+sums the positive count and the object count over the ranks of
+`collectives.py::loss_group` (the 'data' axis: on a data x spatial mesh
+the ranks of one spatial group hold the same frames' targets) in one
 all-reduce before any division, and the `num_pos == 0` branch is taken on
-the global count, so each rank's loss is its local share of the global
-loss (the shares sum to it).
+the global count, so each rank's loss is its data shard's share of the
+global loss (the shares sum to it).
 
 All math runs in at least float32 (bfloat16 outputs are upcast; float64
 stays float64). Integer powers are written as products, as XLA computes
@@ -29,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from sfa3d_tpu_torch.models import clamped_sigmoid
-from sfa3d_tpu_torch.collectives import active_group, all_reduce_sum
+from sfa3d_tpu_torch.collectives import all_reduce_sum, loss_group
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -106,7 +108,7 @@ def compute_loss(outputs: Dict[str, torch.Tensor],
     mask, idx = tg["obj_mask"], tg["indices_center"]
 
     num_pos, n_obj = None, None
-    if active_group() is not None:  # the global counts, in one all-reduce
+    if loss_group() is not None:  # the global counts, in one all-reduce
         gt = _at_least_f32(tg["hm_cen"])
         counts = all_reduce_sum(torch.stack([(gt == 1.0).to(gt.dtype).sum(), mask.to(gt.dtype).sum()]))
         num_pos, n_obj = counts[0], counts[1]

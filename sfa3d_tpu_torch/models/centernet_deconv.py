@@ -13,7 +13,8 @@ transpose_kernel=True) pads the stride-dilated input by (2, 2) and
 correlates with the flipped kernel, which is what torch's
 ConvTranspose2d(4, stride=2, padding=1) does: the two are the same
 function at any input size (tests/test_torch_deconv.py holds them equal on
-odd and even rasters).
+odd and even rasters). Inside a `spatial.py::row_sharded` context each
+transposed convolution computes its rank's output rows (`RowConvTranspose2d`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 
 from sfa3d_tpu_torch.models.kfpn import HEADS, HM_BIAS, HeadTower, _lecun_normal_
 from sfa3d_tpu_torch.models.resnet import FlaxBatchNorm2d, ResNetBackbone, stage_channels
+from sfa3d_tpu_torch.spatial import RowConvTranspose2d
 
 DECONV_CHANNELS = 256
 DECONV_STD = 0.001  # the JAX package's N(0, 0.001) init of the deconv kernels
@@ -41,7 +43,7 @@ class DeconvCenterNet(ResNetBackbone):
         self.head_conv = head_conv
         layers, cin = [], stage_channels(num_layers)[-1]
         for _ in range(3):
-            layers += [nn.ConvTranspose2d(cin, DECONV_CHANNELS, 4, stride=2, padding=1, bias=False),
+            layers += [RowConvTranspose2d(cin, DECONV_CHANNELS, 4, stride=2, padding=1, bias=False),
                        FlaxBatchNorm2d(DECONV_CHANNELS), nn.ReLU(inplace=True)]
             cin = DECONV_CHANNELS
         self.deconv_layers = nn.Sequential(*layers)

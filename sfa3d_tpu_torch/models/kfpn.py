@@ -10,7 +10,9 @@ parameter names (`conv1`, `bn1`, `layer1.0.conv1`, `conv_up_level1`,
 `fpn0_hm_cen.0`, `fpn0_hm_cen.2`, ...), so a reference
 `Model_fpn_resnet_18_epoch_*.pth` loads with strict=True.
 `sfa3d_tpu_torch.pipeline.forward_heads` is the NHWC entry that matches the
-JAX `model.apply`.
+JAX `model.apply`. Inside a `spatial.py::row_sharded` context every layer
+computes its rank's rows of its output (the lateral 1x1 convs, the
+concatenations and the level softmax are row-local).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from sfa3d_tpu_torch.device import device_constant
 from sfa3d_tpu_torch.models.resnet import ResNetBackbone, stage_channels
+from sfa3d_tpu_torch.spatial import RowConv2d, active_rows, rows_of_product, upsample_nearest_rows
 
 HEADS: Dict[str, int] = {
     "hm_cen": 3,
@@ -73,17 +76,35 @@ def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:
     two products with the interpolation matrices (the JAX package's form).
     The products run in x's type, under autocast too, as JAX builds the
     matrices in x.dtype: float32 for the backbone's last stage, bfloat16
-    for a bfloat16 lateral conv's output."""
+    for a bfloat16 lateral conv's output.
+
+    Inside a `spatial.py::row_sharded` context x is this rank's rows of the
+    map and so is the result: output rows [lo, hi) are rows [lo, hi) of
+    the row matrix times the input rows those matrix rows touch, fetched
+    from their owners (the split of 2H rows does not line up with that of
+    H: 19 rows over 2 ranks are 10 + 9, 38 rows 19 + 19)."""
+    sh = active_rows()
     h, w = x.shape[-2:]
-    ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
     aw = _interp_matrix(w, 2 * w, x.device, x.dtype)
+    if sh is None:
+        ah = _interp_matrix(h, 2 * h, x.device, x.dtype)
+    else:
+        h = sh.height(x)
+        x, (lo, hi), (a, b) = rows_of_product(x, _align_corners_matrix(h, 2 * h), sh, 2 * w)
+        ah = _interp_matrix(h, 2 * h, x.device, x.dtype)[lo:hi, a:b]
     with torch.autocast(x.device.type, enabled=False):
         return torch.matmul(torch.matmul(ah, x), aw.transpose(0, 1))
 
 
-def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
-    """(B, C, H, W) -> (B, C, 2H, 2W), exact 2x nearest (a repeat)."""
+def _repeat2x(x: torch.Tensor) -> torch.Tensor:
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, 2H, 2W), exact 2x nearest (a repeat); this
+    rank's rows of it inside a `row_sharded` context."""
+    sh = active_rows()
+    return _repeat2x(x) if sh is None else upsample_nearest_rows(x, sh, _repeat2x)
 
 
 def apply_kfpn(outs: List[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,9 +124,9 @@ class HeadTower(nn.Sequential):
 
     def __init__(self, in_channels: int, head_conv: int, out_channels: int):
         super().__init__(
-            nn.Conv2d(in_channels, head_conv, 3, padding=1, bias=True),
+            RowConv2d(in_channels, head_conv, 3, padding=1, bias=True),
             nn.ReLU(inplace=True),
-            nn.Conv2d(head_conv, out_channels, 1, bias=True),
+            RowConv2d(head_conv, out_channels, 1, bias=True),
         )
 
 
@@ -126,9 +147,9 @@ class KFPN(ResNetBackbone):
         self.heads = dict(HEADS if heads is None else heads)
         self.head_conv = head_conv
         c1, c2, c3, c4 = stage_channels(num_layers)
-        self.conv_up_level1 = nn.Conv2d(c4 + c3, 256, 1, bias=True)
-        self.conv_up_level2 = nn.Conv2d(256 + c2, 128, 1, bias=True)
-        self.conv_up_level3 = nn.Conv2d(128 + c1, 64, 1, bias=True)
+        self.conv_up_level1 = RowConv2d(c4 + c3, 256, 1, bias=True)
+        self.conv_up_level2 = RowConv2d(256 + c2, 128, 1, bias=True)
+        self.conv_up_level3 = RowConv2d(128 + c1, 64, 1, bias=True)
         for idx, fpn_c in enumerate((256, 128, 64)):
             for head, out_ch in self.heads.items():
                 setattr(self, f"fpn{idx}_{head}", HeadTower(fpn_c, head_conv, out_ch))

@@ -6,7 +6,9 @@ Parameter names are the reference PoseResNet's (`conv1`, `bn1`,
 `Model_fpn_resnet_*.pth` state_dict loads with strict=True. BatchNorm uses
 eps 1e-5; in eval mode it uses the running statistics, in training mode the
 batch's, and it updates the running statistics as flax does
-(`FlaxBatchNorm2d`).
+(`FlaxBatchNorm2d`). The convolutions and the stem's max-pool are
+`spatial.py`'s row-sharded layers: torch's own outside a `row_sharded`
+context, each rank's rows of the output inside one.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sfa3d_tpu_torch.collectives import active_group, all_reduce_sum
+from sfa3d_tpu_torch.collectives import all_reduce_sum, batch_group
+from sfa3d_tpu_torch.spatial import RowConv2d, RowMaxPool2d
 
 BN_EPS = 1e-5
 FLAX_MOMENTUM = 0.9  # flax nn.BatchNorm(momentum=0.9): running = 0.9 * running + 0.1 * batch
@@ -54,7 +57,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         x = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
             return super().forward(x)
-        group = active_group()
+        group = batch_group()
         if group is not None:
             return self._global_forward(x, group)
         n = x.numel() // x.shape[1]  # values per channel
@@ -72,8 +75,9 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def _global_forward(self, x: torch.Tensor, group) -> torch.Tensor:
         """Training mode under a data-parallel group (`parallel/mesh.py`), in
         flax's order: the per-channel sum, sum of squares and count summed
-        over the ranks in one differentiable all-reduce (the gradient flows
-        through the global statistics, as through XLA's psum), mean and
+        over the ranks (every rank of a data x spatial mesh, each over its
+        own rows, possibly none) in one differentiable all-reduce (the
+        gradient flows through the global statistics, as through XLA's psum), mean and
         biased variance E[x^2] - E[x]^2 clipped at 0, y = (x - mean) *
         (rsqrt(var + eps) * weight) + bias, and the running statistics
         updated with flax's momentum and the biased variance. x is already
@@ -98,7 +102,7 @@ def _bn(channels: int) -> FlaxBatchNorm2d:
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
+    return RowConv2d(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=False)
 
 
 class ConvBN(nn.Sequential):
@@ -180,10 +184,10 @@ class ResNetBackbone(nn.Module):
         if num_layers not in RESNET_SPEC:
             raise ValueError(f"unsupported ResNet depth {num_layers}; have {sorted(RESNET_SPEC)}")
         block_cls, counts = RESNET_SPEC[num_layers]
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = RowConv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = _bn(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
+        self.maxpool = RowMaxPool2d(3, stride=2, padding=1)
         inplanes = 64
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), counts)):
             stride = 1 if stage == 0 else 2

@@ -14,9 +14,12 @@ list `model` of 23 layers whose parameters carry the keys `model.N.*`
 strict=True. The public functions (`forward_levels`, `decode_predictions`,
 `select_detections`) keep the JAX package's NHWC layout and fixed shapes.
 BatchNorm is flax's (eps 1e-3, momentum 0.97, the biased running variance:
-`FlaxBatchNorm2d`). `export_ultralytics_state_dict` /
-`save_ultralytics_checkpoint` write the ultralytics layout that
-`load_yolo_checkpoint` and the JAX package's `load_yolo_variables` read.
+`FlaxBatchNorm2d`). The convolutions, SPPF's max-pools and the upsamples
+are `spatial.py`'s row-sharded layers (each rank's rows inside a
+`row_sharded` context; `Concat` and the C2f splits are row-local).
+`export_ultralytics_state_dict` / `save_ultralytics_checkpoint` write the
+ultralytics layout that `load_yolo_checkpoint` and the JAX package's
+`load_yolo_variables` read.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch import nn
 from sfa3d_tpu_torch.device import Device, resolve_device
 from sfa3d_tpu_torch.models.kfpn import _lecun_normal_
 from sfa3d_tpu_torch.models.resnet import FlaxBatchNorm2d
+from sfa3d_tpu_torch.spatial import RowConv2d, RowMaxPool2d, active_rows, gather_channels, upsample_nearest_rows
 
 # (depth_mult, width_mult, max_channels)
 SCALES = {
@@ -92,7 +96,7 @@ class ConvBnSiLU(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
+        self.conv = RowConv2d(cin, cout, kernel, stride, kernel // 2, bias=False)
         self.bn = FlaxBatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -139,7 +143,7 @@ class SPPF(nn.Module):
         c = cin // 2
         self.cv1 = ConvBnSiLU(cin, c, 1)
         self.cv2 = ConvBnSiLU(4 * c, features, 1)
-        self.m = nn.MaxPool2d(pool, stride=1, padding=pool // 2)
+        self.m = RowMaxPool2d(pool, stride=1, padding=pool // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv1(x)
@@ -148,11 +152,17 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat([y, y1, y2, self.m(y2)], 1))
 
 
+def _nearest2x(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
 class Upsample2x(nn.Module):
-    """Nearest 2x upsampling (the JAX model's jnp.repeat twice)."""
+    """Nearest 2x upsampling (the JAX model's jnp.repeat twice); this rank's
+    rows of it inside a `row_sharded` context."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.interpolate(x, scale_factor=2.0, mode="nearest")
+        sh = active_rows()
+        return _nearest2x(x) if sh is None else upsample_nearest_rows(x, sh, _nearest2x)
 
 
 class Concat(nn.Module):
@@ -179,11 +189,11 @@ class DetectHead(nn.Module):
         c2 = max(16, ch[0] // 4, REG_MAX * 4)
         c3 = max(ch[0], min(num_classes, 100))
         self.cv2 = nn.ModuleList(
-            nn.Sequential(ConvBnSiLU(c, c2, 3), ConvBnSiLU(c2, c2, 3), nn.Conv2d(c2, 4 * REG_MAX, 1))
+            nn.Sequential(ConvBnSiLU(c, c2, 3), ConvBnSiLU(c2, c2, 3), RowConv2d(c2, 4 * REG_MAX, 1))
             for c in ch
         )
         self.cv3 = nn.ModuleList(
-            nn.Sequential(ConvBnSiLU(c, c3, 3), ConvBnSiLU(c3, c3, 3), nn.Conv2d(c3, num_classes, 1))
+            nn.Sequential(ConvBnSiLU(c, c3, 3), ConvBnSiLU(c3, c3, 3), RowConv2d(c3, num_classes, 1))
             for c in ch
         )
         self.dfl = DFL(REG_MAX)
@@ -261,9 +271,14 @@ class YOLOv8(nn.Module):
 def forward_levels(model: YOLOv8, images: torch.Tensor) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """(B, H, W, 3) images -> per-level (box_logits (B, h, w, 64), cls_logits
     (B, h, w, nc)), NHWC views, on the model's device (the JAX
-    `model.apply(variables, images)`)."""
+    `model.apply(variables, images)`). Inside a `spatial.py::row_sharded`
+    context `images` are this rank's rows, and each level is gathered whole
+    before it is returned: the decode's anchors are in global grid
+    coordinates."""
     images = torch.as_tensor(images, device=next(model.parameters()).device)
     levels = model(images.permute(0, 3, 1, 2))
+    if active_rows() is not None:
+        levels = [tuple(gather_channels([b, c])) for b, c in levels]
     return [(b.permute(0, 2, 3, 1), c.permute(0, 2, 3, 1)) for b, c in levels]
 
 

@@ -20,7 +20,8 @@ meanings:
   SFA3D_NUM_PROCESSES and SFA3D_PROCESS_ID as the JAX package does;
   `init_process_group` over tcp://, NCCL on cuda and gloo on the CPU.
 - `spawn_ranks(fn, world_size, ...)`: N local ranks with the spawn start
-  method, one per `cuda:i` (or N CPU ranks), each in a process group.
+  method, one per `cuda:i` (or N CPU ranks, or with backend="gloo" N ranks
+  sharing the cards), each in a process group.
 
 Under a data-sharded jit two things are global that PyTorch's defaults
 keep per rank: BatchNorm statistics (XLA turns the reduction into a psum)
@@ -35,6 +36,16 @@ gradients, summed over the ranks (`all_reduce_grads`), are JAX's.
 At world size 1 nothing is wrapped and no collective runs:
 `data_parallel` is then a null context and the step is the one-device
 step.
+
+Data x spatial (JAX's `make_mesh_2d`): `make_mesh_2d(data, spatial)` puts
+rank r at (data r // spatial, spatial r % spatial), JAX's
+`reshape(data, spatial)` order, and carries three groups: the world, the
+spatial group (the ranks that share a data index) and the data group (the
+ranks that share a spatial index). `shard_batch` gives a rank its frames
+(over 'data') and `shard_rows` its rows (over 'spatial', by
+`spatial.py::row_range`). Inside `data_parallel` BatchNorm reduces over the
+world and the losses' normalizers over the data group
+(`collectives.py`); `spatial.py::row_sharded` splits a network's rows.
 """
 
 from __future__ import annotations
@@ -44,15 +55,17 @@ import datetime
 import os
 import socket
 import time
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from sfa3d_tpu_torch.device import Device, resolve_device
+from sfa3d_tpu_torch.spatial import shard_rows  # noqa: F401  (the mesh's rows, beside shard_batch)
 
-DATA_AXIS = "data"  # the mesh's one axis (JAX's name)
+DATA_AXIS = "data"  # the 1-D mesh's one axis (JAX's name)
+SPATIAL_AXIS = "spatial"  # make_mesh_2d's second axis: feature-map rows
 GRAD_BUCKET_BYTES = 25 << 20  # gradients all-reduced in flat buckets of about this size
 INIT_TIMEOUT = datetime.timedelta(minutes=10)  # rendezvous and collectives of a launched group
 
@@ -78,6 +91,66 @@ class Mesh:
         """The group collectives run over (the default group when None)."""
         return dist.group.WORLD if self.group is None else self.group
 
+    @property
+    def data_size(self) -> int:
+        """Ranks along 'data': each holds other frames of the batch."""
+        return self.world_size
+
+    @property
+    def data_index(self) -> int:
+        return self.rank
+
+    @property
+    def spatial_size(self) -> int:
+        """Ranks along 'spatial': each holds other rows of the same frames."""
+        return 1
+
+    @property
+    def loss_group(self):
+        """The group the losses' normalizers are summed over: the ranks
+        that hold other frames' targets (None when there is one)."""
+        return self.process_group
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D(Mesh):
+    """One rank's view of a (data x spatial) mesh over the whole process
+    group: rank r is at (data r // spatial, spatial r % spatial);
+    `spatial_group` holds the ranks of its data index (`spatial_ranks`),
+    `data_group` the ranks of its spatial index. BatchNorm statistics and the gradients are summed over
+    the world, the losses' normalizers over the data group."""
+
+    data: int = 1
+    spatial: int = 1
+    spatial_group: Any = None
+    data_group: Any = None
+
+    @property
+    def data_size(self) -> int:
+        return self.data
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_size(self) -> int:
+        return self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def spatial_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of the spatial group, in spatial order."""
+        first = self.rank - self.spatial_index
+        return tuple(range(first, first + self.spatial))
+
+    @property
+    def loss_group(self):
+        return self.data_group if self.data > 1 else None
+
 
 def _group_device(device: Device) -> torch.device:
     dev = resolve_device(device)
@@ -101,6 +174,33 @@ def make_mesh(n_devices: Optional[int] = None, device: Device = None, group: Any
         raise ValueError(f"a mesh of {n_devices} devices needs a process group of {n_devices} ranks; "
                          f"this one has {world} (start the ranks with spawn_ranks or SFA3D_DIST)")
     return Mesh(world_size=world, rank=rank, device=_group_device(device), group=group)
+
+
+def make_mesh_2d(data: int, spatial: int, device: Device = None) -> Mesh2D:
+    """The (data x spatial) mesh of this process: the initialised process
+    group, whose size must be data * spatial (or a world of one when both
+    are 1). Every rank creates the spatial groups, then the data groups,
+    with `dist.new_group` in one order; each keeps its own. `device` as in
+    make_mesh."""
+    if data < 1 or spatial < 1:
+        raise ValueError(f"a mesh of {data} x {spatial} ranks")
+    initialised = dist.is_available() and dist.is_initialized()
+    world, rank = (dist.get_world_size(), dist.get_rank()) if initialised else (1, 0)
+    if world != data * spatial:
+        raise ValueError(f"a {data} x {spatial} mesh needs a process group of {data * spatial} ranks; "
+                         f"this one has {world} (start the ranks with spawn_ranks or SFA3D_DIST)")
+    spatial_group = data_group = None
+    if world > 1:
+        for d in range(data):
+            g = dist.new_group([d * spatial + s for s in range(spatial)])
+            if d == rank // spatial:
+                spatial_group = g
+        for s in range(spatial):
+            g = dist.new_group([d * spatial + s for d in range(data)])
+            if s == rank % spatial:
+                data_group = g
+    return Mesh2D(world_size=world, rank=rank, device=_group_device(device), data=data, spatial=spatial,
+                  spatial_group=spatial_group, data_group=data_group)
 
 
 def all_reduce_grads(params, mesh: Mesh) -> None:
@@ -155,17 +255,18 @@ def _shard(mesh: Mesh, x, axis: int):
         return type(x)(_shard(mesh, v, axis) for v in x)
     t = torch.as_tensor(x) if isinstance(x, np.ndarray) else x
     n = t.shape[axis]
-    if n % mesh.world_size:
-        raise ValueError(f"batch axis {axis} of size {n} does not divide over {mesh.world_size} ranks")
-    k = n // mesh.world_size
-    return t.narrow(axis, mesh.rank * k, k).to(mesh.device)
+    if n % mesh.data_size:
+        raise ValueError(f"batch axis {axis} of size {n} does not divide over {mesh.data_size} ranks")
+    k = n // mesh.data_size
+    return t.narrow(axis, mesh.data_index * k, k).to(mesh.device)
 
 
 def shard_batch(mesh: Mesh, batch, axis: int = 0):
     """This rank's slice of a global batch (a tensor, or a dict / list /
-    tuple of them): rows [rank * n / world, (rank + 1) * n / world) of
-    `axis` (1 for the (S, B, ...) accumulation stacks), on the mesh's
-    device. The batch axis must divide by the world size."""
+    tuple of them): rows [i * n / d, (i + 1) * n / d) of `axis` (1 for the
+    (S, B, ...) accumulation stacks), i the rank's data index and d the
+    ranks along 'data' (the world on a 1-D mesh), on the mesh's device. The
+    batch axis must divide by d."""
     return _shard(mesh, batch, axis)
 
 
@@ -254,15 +355,16 @@ def free_port() -> int:
 
 
 def _rank_entry(rank: int, fn: Callable, world_size: int, init_method: str, devices: Sequence[str],
-                threads: int, args: tuple) -> None:
+                threads: int, args: tuple, backend: str) -> None:
     """One spawned rank: its device, its process group, then fn(*args)."""
     dev = torch.device(devices[rank])
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
         torch.set_num_threads(threads)
+    if backend == "gloo":
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # local ranks meet on the loopback
-    dist.init_process_group(_backend(dev), init_method=init_method, world_size=world_size, rank=rank,
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank,
                             timeout=INIT_TIMEOUT)
     try:
         fn(*args)
@@ -271,17 +373,22 @@ def _rank_entry(rank: int, fn: Callable, world_size: int, init_method: str, devi
 
 
 def spawn_ranks(fn: Callable, world_size: int, args: tuple = (), device: Device = None,
-                timeout: Optional[float] = None) -> None:
+                timeout: Optional[float] = None, backend: Optional[str] = None) -> None:
     """Run fn(*args) in `world_size` new processes (the spawn start method),
     each a rank of one process group over tcp://127.0.0.1:<a free port>.
     `fn` must be a module-level function. On cuda (the default) rank i
     takes cuda:i over NCCL, which refuses two ranks on one GPU, so the
-    world needs that many visible GPUs; "cpu" gives CPU ranks over gloo
+    world needs that many visible GPUs; with backend="gloo" rank i takes
+    cuda:(i modulo the visible GPUs) over gloo, so ranks may share a card
+    (a check of correctness, not of speed). "cpu" gives CPU ranks over gloo
     that share this process's torch threads. Raises if a rank fails;
     after `timeout` seconds every rank still running is killed and
     TimeoutError raised."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
+    backend = _backend(dev) if backend is None else backend
+    if dev.type == "cuda" and backend == "gloo":
+        devices = [f"cuda:{i % torch.cuda.device_count()}" for i in range(world_size)]
+    elif dev.type == "cuda":
         if world_size > torch.cuda.device_count():
             raise ValueError(f"{world_size} ranks need {world_size} GPUs; {torch.cuda.device_count()} visible "
                              "(NCCL refuses two ranks on one GPU)")
@@ -291,7 +398,7 @@ def spawn_ranks(fn: Callable, world_size: int, args: tuple = (), device: Device 
     threads = max(1, torch.get_num_threads() // world_size)  # CPU ranks share this process's threads
     init = f"tcp://127.0.0.1:{free_port()}"
     ctx = torch.multiprocessing.start_processes(
-        _rank_entry, args=(fn, world_size, init, devices, threads, tuple(args)),
+        _rank_entry, args=(fn, world_size, init, devices, threads, tuple(args), backend),
         nprocs=world_size, join=False, start_method="spawn")
     deadline = None if timeout is None else time.monotonic() + timeout
     try:

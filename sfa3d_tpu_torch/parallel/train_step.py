@@ -26,6 +26,20 @@ frames of every micro-batch and the step is JAX's data-sharded step:
   (which advances on every rank) and the BatchNorm statistics;
 - the loss terms are all-reduced once at the end, so every rank returns
   JAX's global numbers.
+With a (data x spatial) mesh (`mesh.py::make_mesh_2d`), JAX's step with
+the BEV rows sharded over 'spatial': each rank takes its data index's
+frames (the batch as `shard_batch` gives it, at full height) and keeps its
+spatial index's rows of each micro-batch (`mesh.py::shard_rows`); the
+forward runs inside `spatial.py::row_sharded`, where every layer computes
+its rank's rows and fetches the halo rows it reads from their owners, and
+BatchNorm reduces over the world; the heads are gathered whole on every
+rank of the spatial group (`spatial.py::row_sharded_forward`, whose
+gather's backward keeps the rank's own rows), so the loss, whose
+normalizers reduce over the data group, is the unsharded loss of the
+rank's frames, a copy on each rank of the spatial group; the gradients
+are summed over the world and the stats over the data group only, so
+that no copy is counted twice.
+
 An explicit all-reduce and not `DistributedDataParallel`: DDP averages
 (the sum would need a comm hook or a loss scaled by the world size), needs
 `no_sync()` on all but the last micro-batch and `broadcast_buffers=False`
@@ -57,6 +71,7 @@ from sfa3d_tpu_torch.device import Device, resolve_device
 from sfa3d_tpu_torch.losses import compute_loss
 from sfa3d_tpu_torch.models import check_compute_dtype, compute_autocast
 from sfa3d_tpu_torch.parallel.mesh import Mesh, all_reduce_grads
+from sfa3d_tpu_torch.pipeline import _heads_nhwc
 from sfa3d_tpu_torch.runtime.schedules import OptimizerSpec
 
 STAT_KEYS = ("total_loss", "hm_cen_loss", "cen_offset_loss", "dim_loss", "direction_loss", "z_coor_loss")
@@ -97,10 +112,6 @@ def ema_decay_at(step: int, decay: float, tau: float = 2000.0) -> np.float32:
     return np.float32(decay) * (np.float32(1.0) - np.exp(-np.float32(step) * inv_tau))
 
 
-def _heads_nhwc(model: nn.Module, bev_nchw: torch.Tensor) -> Dict[str, torch.Tensor]:
-    return {k: v.permute(0, 2, 3, 1) for k, v in model(bev_nchw).items()}
-
-
 def _check_device(model: nn.Module, device: Device, mesh: Optional[Mesh] = None) -> None:
     """The step runs on `device` (default cuda; raises without a GPU unless
     device="cpu"), or on the mesh's device, where the model must already
@@ -116,12 +127,13 @@ def _check_device(model: nn.Module, device: Device, mesh: Optional[Mesh] = None)
 
 
 def global_stats(stats: Dict[str, torch.Tensor], mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
-    """Per-rank loss shares -> their sum over the ranks (one all-reduce);
-    the stats themselves without a mesh or at world size 1."""
-    if mesh is None or not mesh.synced:
+    """Per-rank loss shares -> their sum over the ranks that hold other
+    frames (the mesh's loss group; one all-reduce); the stats themselves
+    without a mesh, at world size 1 or with one data index."""
+    if mesh is None or not mesh.synced or mesh.loss_group is None:
         return stats
     keys = list(stats)
-    summed = all_reduce_sum(torch.stack([stats[k].detach() for k in keys]), mesh.process_group)
+    summed = all_reduce_sum(torch.stack([stats[k].detach() for k in keys]), mesh.loss_group)
     return {k: summed[i] for i, k in enumerate(keys)}
 
 
@@ -136,7 +148,8 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, ema_decay: float = 0.0,
     batch: {"bev": (S, B, 3, H, W) raster, "targets": dict of (S, B, ...)
     `build_targets` tensors}, on the model's device; with a mesh, this
     rank's B frames of the global batch (`mesh.py::shard_batch(mesh, batch,
-    axis=1)`, or a loader built with process_index / process_count).
+    axis=1)`, or a loader built with process_index / process_count), whole:
+    on a data x spatial mesh the step keeps the rank's rows itself.
     stats: the mean over the S micro-batches of each loss term (of the
     global batch), 0-dim tensors on the device."""
     _check_device(model, device, mesh)
@@ -156,7 +169,7 @@ def make_train_step(model: nn.Module, tx: OptimizerSpec, ema_decay: float = 0.0,
         for s in range(n_micro):
             with data_parallel(mesh):
                 with compute_autocast(device_of, compute_dtype):
-                    outputs = _heads_nhwc(m, bev[s])
+                    outputs = _heads_nhwc(m, bev[s], mesh)
                 total, stats = compute_loss(outputs, {k: v[s] for k, v in targets.items()})
             total.backward()
             stats = {k: stats[k].detach() for k in STAT_KEYS}
@@ -184,7 +197,9 @@ def make_eval_step(model: nn.Module, device: Device = None, mesh: Optional[Mesh]
     batch: {"bev": (B, 3, H, W), "targets": dict of (B, ...)} -> stats. On
     `device`, as make_train_step; with a mesh, the batch is this rank's
     slice and the stats are the global batch's (global normalizers, the
-    shares summed over the ranks)."""
+    shares summed over the ranks). A data x spatial mesh shards the batch
+    over 'data' only, as JAX's eval step does: each rank of a spatial
+    group runs its frames whole."""
     _check_device(model, device, mesh)
 
     def step_fn(state: TrainState, batch) -> Dict[str, torch.Tensor]:

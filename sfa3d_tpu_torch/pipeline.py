@@ -22,6 +22,7 @@ from sfa3d_tpu_torch.device import Device, resolve_device
 from sfa3d_tpu_torch.models import clamped_sigmoid
 from sfa3d_tpu_torch.ops.bev import points_to_bev_nchw
 from sfa3d_tpu_torch.ops.decode import decode, detections_to_real, post_processing
+from sfa3d_tpu_torch.spatial import row_sharded_forward
 
 
 def _model_device(model: torch.nn.Module) -> torch.device:
@@ -34,8 +35,14 @@ def _check_model_device(model: torch.nn.Module, device: torch.device) -> None:
         raise ValueError(f"model lies on {have} but the call asks for {device}")
 
 
-def _heads_nhwc(model, bev_nchw: torch.Tensor) -> Dict[str, torch.Tensor]:
-    return {k: v.permute(0, 2, 3, 1) for k, v in model(bev_nchw).items()}
+def _heads_nhwc(model, bev_nchw: torch.Tensor, mesh=None) -> Dict[str, torch.Tensor]:
+    """The heads of a (B, 3, H, W) BEV batch, NHWC; on a data x spatial
+    mesh computed on this rank's rows and gathered whole."""
+    if mesh is None or mesh.spatial_size == 1:
+        heads = model(bev_nchw)
+    else:
+        heads = row_sharded_forward(model, bev_nchw, mesh)
+    return {k: v.permute(0, 2, 3, 1) for k, v in heads.items()}
 
 
 def forward_heads(model, bev: torch.Tensor) -> Dict[str, torch.Tensor]:

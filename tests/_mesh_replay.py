@@ -13,6 +13,7 @@ A case is a dict (saved with `torch.save`):
   "tx":          ("create_optimizer", OptimConfig, num_epochs, steps_per_epoch)
                  or ("adamw", [learning rate of each step], weight_decay)
   "ema":         (decay, tau), or None
+  "compute_dtype": (optional, KFPN) the step's compute dtype, "float32" if absent
   KFPN:          "batches": [global {"bev": (S, B, 3, H, W), "targets": ...}],
                  one train step each
   YOLOv8:        "data" (the split), "idx" (S, B), "flips" (S, B), "imgsz":
@@ -86,7 +87,8 @@ def replay(case, mesh=None):
         state = create_train_state(model, spec, ema=ema is not None)
         if mesh is not None:
             replicate(mesh, state)
-        step = make_train_step(model, spec, *(ema or (0.0,)), device=device, mesh=mesh)
+        step = make_train_step(model, spec, *(ema or (0.0,)), compute_dtype=case.get("compute_dtype", "float32"),
+                               device=device, mesh=mesh)
         here = mesh if mesh is not None else Mesh(1, 0, torch.device("cpu"))
         for batch in case["batches"]:
             state, stats = step(state, shard_batch(here, batch, axis=1))

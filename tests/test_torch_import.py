@@ -40,7 +40,8 @@ def test_port_imports_without_jax():
                  "runtime.export", "cli.export", "cli.__main__", "viz.raster", "viz.hershey", "viz.draw",
                  "viz.bev_projection", "cli.test", "cli.fuse", "data.jpeg", "data.avi", "cli.demo", "cli.track",
                  "viz.kfpn_viz", "slam.pnp", "slam.epipolar", "slam.calib_sources", "slam.orb",
-                 "slam.stereo", "cli.slam", "cli.stereo_calib", "native", "collectives", "parallel.mesh"):
+                 "slam.stereo", "cli.slam", "cli.stereo_calib", "native", "collectives", "parallel.mesh",
+                 "spatial"):
         assert f"sfa3d_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
@@ -71,7 +72,7 @@ CHECK_SCRIPTS = [ROOT / "scripts" / "torch_overfit_check.py", ROOT / "scripts" /
                  ROOT / "scripts" / "torch_bf16_compare.py", ROOT / "scripts" / "torch_generalize_check.py",
                  ROOT / "scripts" / "torch_trained_parity_check.py", ROOT / "scripts" / "torch_tracking_check.py",
                  ROOT / "scripts" / "torch_fusion_check.py", ROOT / "scripts" / "torch_argoverse_check.py",
-                 ROOT / "scripts" / "torch_check_runs.py"]
+                 ROOT / "scripts" / "torch_check_runs.py", ROOT / "scripts" / "torch_spatial_parity_check.py"]
 # the JAX check scripts' ports: the arguments each needs to get past its parser
 JAX_CHECK_PORTS = {
     "torch_generalize_check.py": [],
@@ -124,6 +125,23 @@ def test_check_scripts_run_on_cuda_and_raise_without_gpu(monkeypatch, tmp_path, 
     default_out = re.search(r'"--out", default=os\.path\.join\(_ROOT, "(\w+\.json)"\)',
                             (ROOT / "scripts" / name).read_text())
     assert default_out and default_out.group(1).startswith("TORCH_")
+
+
+def test_spatial_parity_check_runs_on_cuda_and_raises_without_gpu(monkeypatch):
+    """The dp x sp parity check runs on cuda unless given --platform cpu,
+    and raises without a GPU before it spawns a rank."""
+    import importlib.util
+
+    path = ROOT / "scripts" / "torch_spatial_parity_check.py"
+    spec = importlib.util.spec_from_file_location("torch_spatial_parity_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    spawned = []
+    monkeypatch.setattr("sfa3d_tpu_torch.parallel.mesh.spawn_ranks", lambda *a, **k: spawned.append(a))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main([])
+    assert not spawned
 
 
 def test_detector_raises_without_gpu(monkeypatch):
