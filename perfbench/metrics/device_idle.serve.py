@@ -1,0 +1,6 @@
+"""device_idle.serve: 1 - (union of device operations' intervals) / the
+traced sub-window, in %, from the profiler's trace."""
+
+from perfbench.harness import readers
+
+read = readers.device_idle
